@@ -1,9 +1,9 @@
 """Minimal usage demo of the library interfaces.
 
 Analogue of /root/reference/src/library_example.cu:11-98: exercises the
-unstructured string-pairs interface and the read-mapping interface, on both
-the portable XLA engine and the TPU Pallas engine (backend="auto" picks
-Pallas on TPU automatically).
+unstructured string-pairs interface and the read-mapping interface
+(backend="auto" runs the Pallas window kernel on a GPU and the portable
+XLA engine elsewhere).
 
 Run: python examples/library_example.py
 """

@@ -1,4 +1,4 @@
-"""scrooge_tpu — TPU-native GenASM/Scrooge pairwise sequence aligner.
+"""scrooge_tpu — GenASM/Scrooge pairwise sequence aligner in JAX/Pallas.
 
 A from-scratch JAX/Pallas reimplementation of the capabilities of
 CMU-SAFARI/Scrooge: the GenASM bitvector approximate string-matching
@@ -6,7 +6,8 @@ algorithm (semiglobal edit distance + extended CIGAR), W-wide overlapping
 windows for arbitrary-length reads, the SENE/DENT/ET optimizations, both
 library interfaces (unstructured pairwise, and read-mapping against a
 shared reference genome with candidate locations), plus the surrounding
-I/O, testing, profiling, and multi-chip scaling machinery.
+I/O, testing, profiling, and multi-device scaling machinery. The device
+path runs on NVIDIA GPUs; the same code runs on the CPU for tests.
 """
 
 from .utils import xla_workarounds as _xla_workarounds

@@ -4,7 +4,8 @@ Mirrors /root/reference/src/cpu_baseline.cpp (flags: :914-926; perf driver
 benchmark_baselines :727-782; accuracy driver accuracy_baselines :784-875)
 with this framework's algorithm set:
 
-  genasm_device  — the Pallas TPU engine (auto backend)
+  genasm_device  — the device engine (auto backend: the window kernel
+                   on a GPU)
   genasm_xla     — the portable XLA engine
   genasm_pyref   — the scalar oracle
   exact          — exact semiglobal edit-distance DP (the edlib role)

@@ -33,7 +33,7 @@ Options:
 --device_info_only                    -- only print device info
 --verbose                             -- print progress to stderr. Otherwise, only test results are printed
 --unit_tests                          -- run unit tests (default: disabled)
---cpu_performance_test                -- run the portable XLA-engine performance test (default: TPU/Pallas)
+--cpu_performance_test                -- run the portable XLA-engine performance test (default: the device engine)
 --profile=[trace dir]                 -- capture a jax.profiler trace of the performance run
 --simulated=[N[,LEN]]                 -- use a built-in simulated dataset instead of files
 --read_length_cap=[N]                 -- truncate every read to N characters (tests.cu:361-365)
@@ -397,9 +397,12 @@ def main(argv: List[str] = None) -> int:
                          profile_dir, simulated, read_length_cap,
                          dataset_inflation)
     else:
+        import jax
+
         print_device_info()
         cfg = AlignConfig(backend="auto")
-        performance_test(reference_file, reads_file, seeds_file, cfg, "TPU",
+        performance_test(reference_file, reads_file, seeds_file, cfg,
+                         jax.devices()[0].platform.upper(),
                          profile_dir, simulated, read_length_cap,
                          dataset_inflation)
     return 0

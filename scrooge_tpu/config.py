@@ -17,15 +17,15 @@ Semantics notes (mirroring the reference):
    of each window's traceback are kept (TB_LIMIT, genasm_cpu.cpp:50).
  - ``store_entries_not_edges`` (SENE) and
    ``discard_entries_not_used_by_traceback`` (DENT) change memory layout
-   only; outputs are bit-identical either way. On TPU we always store
-   entries (SENE) and always discard non-traceback bits (DENT) in the
-   device kernels because that is strictly less memory with no downside on
-   this architecture; the flags are accepted for sweep compatibility and
+   only; outputs are bit-identical either way. The device engines always
+   store entries (SENE) and always discard non-traceback bits (DENT)
+   because that is strictly less memory with no downside; the flags are accepted for sweep compatibility and
    exercised in the Python oracle.
  - ``early_termination`` (ET) stops the DP d-loop at the first row whose
    i==0 entry signals a full-pattern match. Output-invariant; purely a
-   performance toggle. On TPU it is implemented as a *batched* early exit:
-   the d-loop stops once every lane in the tile has found its distance.
+   performance toggle. On the device it is a *batched* early exit: the
+   d-loop stops once every lane of a warp (kernel) or of the tile
+   (engine_xla) has found its distance.
 """
 
 from __future__ import annotations
@@ -47,31 +47,24 @@ class AlignConfig:
     discard_entries_not_used_by_traceback: bool = True
     early_termination: bool = True
 
-    # TPU execution knobs (no reference analogue; tile sizing replaces the
-    # GPU's THREAD_BLOCKS_PER_SM / persistent-block work queue,
+    # Device execution knobs (no reference analogue; tile sizing replaces
+    # the GPU's THREAD_BLOCKS_PER_SM / persistent-block work queue,
     # genasm_gpu.cu:583-629).
-    batch_tile: int = 1024  # 8 sublanes x 128 lanes: dense VPU tiles
+    batch_tile: int = 1024  # pairs per device tile (a multiple of 128)
     backend: str = "auto"  # "auto" | "xla" | "pallas" | "pyref"
-    # Pallas-engine per-window d-search cap override (see tb_cap below);
-    # 0 = auto (min(K, 32)). A kernel performance/VMEM knob: raising it
-    # trades VMEM + fill iterations for fewer retry-cliff lanes on
-    # high-error (ONT-like) inputs.
+    # Run the Pallas kernel in the Pallas interpreter instead of compiling
+    # it for the GPU: how the tests exercise the kernel without a card.
+    interpret: bool = False
+    # Kernel per-window d-search cap override (see tb_cap below); 0 = auto
+    # (min(K, 32)). Raising it trades R-table rows + fill iterations for
+    # fewer retried lanes on high-error (ONT-like) inputs.
     tb_cap_override: int = 0
-    # retry escalation: lanes that fail for a Pallas-resolvable reason
-    # (tb_cap exceeded, slab drift past the margin, compaction-cap
-    # overflow) re-run on the Pallas engine with the cap/margin doubled
-    # before falling to the ~10^3x-slower full-K XLA retry.
+    # retry escalation: lanes that fail for a kernel-resolvable reason
+    # (tb_cap exceeded, compaction-cap overflow) re-run on the kernel with
+    # the cap doubled before falling to the full-K XLA retry.
     # Output-invariant (the ladder ends at full coverage either way);
     # purely a retry-path performance policy.
     retry_escalation: bool = True
-    # Pallas-engine slab drift margin override in uint32 words (see
-    # engine_pallas.SLAB_MARGIN_WORDS); 0 = default (8 words = 128
-    # chars). Lanes whose text/pattern cursor drifts further than this
-    # from the batch's common slab base fail with FAIL_DRIFT; the
-    # escalation ladder re-runs them at doubled margins. Raising it
-    # costs slab IO words + one extra select-tree level in the kernel's
-    # normalize pass, nothing else.
-    margin_override: int = 0
 
     def __post_init__(self):
         if self.W < 2:
@@ -81,11 +74,9 @@ class AlignConfig:
         if self.K < 1:
             raise ValueError("K must be >= 1")
         if self.batch_tile % 128 != 0:
-            raise ValueError("batch_tile must be a multiple of 128 (TPU lanes)")
+            raise ValueError("batch_tile must be a multiple of 128")
         if not 0 <= self.tb_cap_override <= self.K:
             raise ValueError("tb_cap_override must be in [0, K]")
-        if not 0 <= self.margin_override <= 64:
-            raise ValueError("margin_override must be in [0, 64]")
 
     # ---- derived quantities (names follow genasm_cpu.cpp:44-84) ----
 
@@ -105,13 +96,13 @@ class AlignConfig:
 
     @property
     def tb_cap(self) -> int:
-        """Device-engine cap on per-window edit distance (Pallas engine
+        """Device-engine cap on per-window edit distance (kernel engine
         only): DP rows stored for traceback and d-levels searched. A
         window that finds no alignment within tb_cap edits fails its lane
         to the bit-exact batched-XLA/scalar retry path — at min(K, 32)
         that is unreachable for realistic read accuracies (P[window edit
         distance > 32] < 1e-9 even at 80% accuracy) while keeping the R
-        scratch and the traceback-row buffers small. ``tb_cap_override``
+        table and the traceback-row buffers small. ``tb_cap_override``
         raises/lowers it explicitly (the retry-cliff knob for high-error
         inputs; swept by profiling/sweep.py). The XLA engine always
         searches the full K (it is the fallback the retry path relies
@@ -119,13 +110,6 @@ class AlignConfig:
         if self.tb_cap_override:
             return min(self.tb_cap_override, self.K)
         return min(self.K, 32)
-
-    @property
-    def margin_words(self) -> int:
-        """Pallas-engine slab drift margin in uint32 words (default 8 =
-        128 chars; see margin_override and
-        engine_pallas.SLAB_MARGIN_WORDS)."""
-        return self.margin_override or 8
 
     @property
     def num_words(self) -> int:

@@ -2,8 +2,8 @@
 
 A bitvector of W bits is an array of shape (NW, *lane_shape) uint32, word 0
 least-significant, with the top word masked to W % 32 bits (cf. the
-reference's macro-generated fixed-width bitvector, bitvector.hpp:32-54; the
-TPU equivalent is plain vectorized uint32 arithmetic over the lane grid).
+reference's macro-generated fixed-width bitvector, bitvector.hpp:32-54;
+here it is plain vectorized uint32 arithmetic over the lane grid).
 
 The engine runs the DP in an MSB-aligned space: for a window of pattern
 length m <= W, all quantities are the reference's values shifted left by

@@ -1,63 +1,56 @@
-"""Pallas TPU kernel engine: DP fill + traceback in VMEM.
+"""Fused GenASM window kernel for NVIDIA GPUs (Pallas through Triton).
 
 Same windowed-alignment semantics as engine_xla (and therefore the scalar
-oracle and the reference C++, genasm_cpu.cpp:210-438) with the hot per-
-window work — pattern-bitmask build, GenASM DP fill, traceback with CIGAR
-run emission, and the window-to-window carry update — fused into ONE Pallas
-kernel that processes KW consecutive windows per invocation, so the R
-traceback table lives entirely in VMEM and never touches HBM. This is the
-TPU analogue of the reference GPU's shared-memory DP storage
-(genasm_gpu.cu:584-600, DP_MEMORY=SHARED), with lane-tile batching standing
-in for the per-pair thread blocks.
+oracle and the reference C++, genasm_cpu.cpp:210-438), with ALL the
+windows of a read — pattern-bitmask build, GenASM DP fill, traceback with
+CIGAR run emission and the window-to-window carry — in ONE kernel launch,
+the original GPU kernel's whole-read loop per block (genasm_gpu.cu:537-580).
 
-TPU-first design decisions (deliberately NOT the GPU mapping):
- - no anti-diagonal wavefront/shuffle_up: batch lanes already fill the VPU,
-   so the fill runs the CPU-style sequential (d, i) loops with every lane
-   advancing in lockstep; cross-lane communication is zero.
- - sequences are 2-bit packed, 16 bases/uint32 word (the reference packs
-   4 bases/byte, genasm_gpu.cu:162-189), stored word-major (Wd, B), and
-   the outer scan ships one SLAB of (KW-1)*TB + W chars per KW windows
-   as a CONTIGUOUS dynamic_slice at the active lanes' minimum word base
-   — per-lane gathers (which cost per element on TPU and measured ~40%
-   of runtime) are gone; per-lane word offsets up to SLAB_MARGIN_WORDS
-   normalize in-kernel and beyond-margin drifters fail to the exact
-   retry path. Window extraction from the slab happens in-kernel at
-   2-bit offsets (windows advance data-dependently by the traceback's
-   consumed counts, which only the kernel knows).
- - early termination is batched per lane-tile: the d-loop is a while_loop
-   that stops once every lane in the tile has found its window distance.
- - traceback is a lockstep d-level sweep reading R rows from VMEM; run
-   emission is per LEVEL: a pending-edit-run register carry merges
-   cross-level runs (e.g. "III") and each level ends with two
-   scalar-indexed row stores, leaving sparse rows whose non-empty slots
-   are complete maximal runs. A per-run in-kernel flush (masked RMW over
-   the whole entry scratch at a per-lane slot) measured ~52% of kernel
-   time; per-level stores + sparse-aware device compaction
-   (compact_entries_sparse) replace it.
+Thread mapping: one thread per pair. A block is one warp of
+PAIRS_PER_BLOCK pairs stepping in lockstep through the same (d, i) loops;
+early termination of the d-search and of the window loop is per warp. (The
+original's other mapping, one block of W threads per pair with an
+anti-diagonal wavefront, is not used here: it needs cross-thread shuffles
+that the Triton route cannot express.)
 
-The kernel grid runs over lane tiles of the batch; slabs advance in an
-outer XLA lax.scan. Outputs are bit-identical to engine_xla —
-tests/test_engine_pallas.py enforces it — so either engine can back the
-public API.
+Sequences are 2-bit packed, 16 bases per uint32 word (pack_2bit). Each
+pair reads its own text and pattern words at its own cursor (a per-lane
+gather), as the original's TwoBitArray views do (genasm_gpu.cu:162-189):
+a window never copies, and pairs at distant cursors never constrain each
+other.
+
+On-chip state: the Triton route has no scratch memory, so the traceback
+table R and the fill's forefront row live in per-block global buffers
+(two extra outputs), lane-minor so that a warp's accesses coalesce, small
+enough per block to stay in L1/L2. Everything else lives in registers.
+
+DP fill: rows advance in bands of ``band`` rows along the text columns
+(i = W .. 0). Inside a band each row takes its top / top-right neighbours
+from the row above in registers; only the band's last row goes through
+the forefront buffer to the next band. Traceback is a lockstep d-level
+sweep with a closed-form level step (one pass over the stored columns,
+then count-trailing-zeros) that emits, per level, one pair-packed row of
+complete maximal CIGAR runs straight into the output.
+
+Outputs are bit-identical to engine_xla — tests/test_engine_pallas.py
+enforces it in interpret mode, chip_smoke.py on the GPU.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..config import AlignConfig
 from . import bitvec as bv
 from .engine_xla import (
     BatchResult,
-    ENTRY_CNT_MASK,
     ENTRY_OP_SHIFT,
     OP_D,
     OP_EQ,
@@ -67,63 +60,22 @@ from .engine_xla import (
     cumsum_log,
 )
 
-LANE = 128
 CHARS_PER_WORD = 16  # 2-bit codes per uint32
-DEFAULT_KW = 8  # windows fused per kernel invocation
-
-# Measurement knob: run one kernel section TWICE (a bit-identical rerun,
-# every section is idempotent), so bench(full doubled-X) - bench(full)
-# isolates section X's cost under realistic data-dependent control flow.
-# Values: "pm2" (pattern unpack+bitmask build), "fill2" (DP fill),
-# "tb2" (traceback). Never set in production paths.
-_ABLATE = os.environ.get("SCROOGE_ABLATE", "")
-_SK_OVERRIDE = int(os.environ.get("SCROOGE_SK", "0"))
-_KW_OVERRIDE = int(os.environ.get("SCROOGE_KW", "0"))
-
-
-def slab_chars(cfg: AlignConfig, kw: int) -> int:
-    """Chars a KW-window slab must cover: each window consumes at most
-    tb_limit text/pattern chars before the next starts."""
-    return (kw - 1) * cfg.tb_limit + cfg.W
-
-
-def slab_words(cfg: AlignConfig, kw: int) -> int:
-    """uint32 words covering a slab at an arbitrary 2-bit start offset."""
-    return -(-slab_chars(cfg, kw) // CHARS_PER_WORD) + 1
-
-
-# Extra slab words shipped per lane beyond the slab span: lanes drift
-# apart slowly (per-window text/pattern advance varies by a few chars),
-# so each slab is fetched as ONE contiguous dynamic_slice at the active
-# lanes' minimum word base and per-lane word offsets up to this margin
-# resolve in-kernel. A lane drifting past the margin is failed to the
-# exact retry path (compound drift over a read is tens of chars; the
-# margin is 128). This removes all per-slab gathers, which measured
-# ~40% of kernel-path runtime.
-SLAB_MARGIN_WORDS = 8
+PAIRS_PER_BLOCK = 32  # one warp, one pair per thread
+# DP rows per fill band, and the widest W the kernel takes. On an H100
+# (tools/kernel_registers.py: ptxas registers per thread, kernel time on
+# 2,048 10 kbp pairs) a four-row band beat a two-row one at W=64, 224 and
+# 256 by 4-29% without spilling (90, 218 and 236 of 255 registers); at
+# W=512 even a two-row band takes all 255 registers and spills.
+FILL_BAND = 4
+MAX_KERNEL_W = 256
 
 # Per-lane failure-reason bits carried in BatchResult.failed (int32).
-# The drift/dead-end telemetry analogue of the reference's DEBUG-gated
+# The dead-end telemetry analogue of the reference's DEBUG-gated
 # traceback checks (genasm_cpu.cpp:362-385); AlignStats aggregates them.
 FAIL_TB = 1          # window's d-search exceeded tb_cap (no traceback found)
 FAIL_STALL = 2       # window consumed no text and no pattern (would loop)
-FAIL_DRIFT = 4       # lane drifted past SLAB_MARGIN_WORDS of the slab base
-FAIL_INCOMPLETE = 8  # slab loop ended before the read was consumed
-
-# Mosaic compile time explodes combinatorially with the per-char unpack
-# select-chain length, which scales with slab_words: 19-21-word chains
-# (W=64 kw=8, W=128 kw=4) compile in minutes and are hardware-validated;
-# a 35-word chain did not finish compiling in 40 minutes. Shapes whose
-# slab exceeds this bound are rejected by choose_kernel_shape in favor of
-# fewer fused windows per launch (smaller kw).
-MAX_SLAB_WORDS = 24
-
-
-def slab_io_words(cfg: AlignConfig, kw: int) -> int:
-    """Words shipped to the kernel per lane per slab (span + drift
-    margin; the margin defaults to SLAB_MARGIN_WORDS and is raised per
-    config by the escalation ladder, cfg.margin_override)."""
-    return slab_words(cfg, kw) + cfg.margin_words
+FAIL_INCOMPLETE = 4  # max_windows ran out before the read was consumed
 
 
 def tb_rows(cfg: AlignConfig) -> int:
@@ -135,75 +87,21 @@ def tb_rows(cfg: AlignConfig) -> int:
     return 2 * cfg.tb_cap + 2
 
 
-def kernel_vmem_bytes(cfg: AlignConfig, sk: int, kw: int = DEFAULT_KW) -> int:
-    """Approximate VMEM footprint of the window kernel for sublane tile sk."""
-    lane_b = sk * LANE * 4
-    r = (cfg.tb_cap + 2) * cfg.columns * cfg.num_tb_words * lane_b
-    ff = (cfg.W + 2) * cfg.num_words * lane_b  # W+1 rows + dummy sink row
-    pmi = cfg.W * cfg.num_words * lane_b
-    upat = (cfg.W if cfg.W % 16 else 1) * lane_b
-    pmc = 4 * cfg.num_words * lane_b
-    ent = (kw + 1) * tb_rows(cfg) * lane_b
-    io = 2 * slab_io_words(cfg, kw) * lane_b + 16 * lane_b
-    return r + ff + pmi + upat + pmc + ent + 2 * io
+def choose_kernel_shape(cfg: AlignConfig):
+    """(pairs per block, DP rows per fill band) for a config, or (0, 0)
+    past MAX_KERNEL_W — such configs run on engine_xla, which keeps its DP
+    state in device memory (the role of the original's DP_MEMORY_GLOBAL,
+    genasm_gpu.cu:584-600). The windows per launch are always all of
+    them."""
+    if cfg.W > MAX_KERNEL_W:
+        return 0, 0
+    return PAIRS_PER_BLOCK, FILL_BAND
 
 
-# A 90MB-scratch kernel (W=256, sk=8, kw=8: 87.9MB model estimate)
-# compiles and runs on v5e (128MB physical VMEM); leave margin for Mosaic
-# temporaries above that empirical point. SCROOGE_VMEM_BUDGET (MB)
-# overrides for probing other parts.
-VMEM_BUDGET = int(os.environ.get("SCROOGE_VMEM_BUDGET", "92")) << 20
-
-
-def choose_kernel_shape(cfg: AlignConfig, S: int,
-                        budget_bytes: int = VMEM_BUDGET):
-    """(sublane tile, windows-per-slab) for a batch of S sublane groups.
-
-    Mosaic block constraint: the sublane block dim must be a multiple of 8
-    or equal to the full dimension. sk=16 measures fastest at the default
-    config across every windows-per-slab choice (operating-point kernel
-    sweep, profile/simulated_32768_10000_device_sweep_kernel.csv: 84.7k
-    aligns/s vs 82.1k at sk=32 and 74.9k at sk=8 — finer tiles couple
-    early termination over fewer lanes, and the grid amortization loss is
-    smaller than that gain); smaller shapes trade slab fusion for VMEM so
-    larger-W configs (W=128 at ~72MB scratch) still run on the Pallas
-    engine. Returns (0, 0) if nothing fits.
-    """
-    # S itself is always Mosaic-legal (a block dim equal to the full
-    # dimension needs no divisibility), so batches whose S has no small
-    # multiple-of-8 divisor still get a (single-tile) kernel if it fits
-    candidates = [min(16, S), min(32, S), min(8, S), S]
-    if _SK_OVERRIDE:  # measurement-only tile override (see _ABLATE)
-        candidates = [min(_SK_OVERRIDE, S)]
-    kws = (DEFAULT_KW, 4, 2, 1)
-    if _KW_OVERRIDE:
-        kws = (_KW_OVERRIDE,)
-    for sk in dict.fromkeys(candidates):
-        if sk <= 0 or S % sk:
-            continue
-        for kw in kws:
-            if slab_words(cfg, kw) > MAX_SLAB_WORDS and not _KW_OVERRIDE:
-                continue  # Mosaic select-chain compile bound (see above)
-            if kernel_vmem_bytes(cfg, sk, kw) <= budget_bytes:
-                return sk, kw
-    return 0, 0
-
-
-def choose_sublane_tile(cfg: AlignConfig, S: int,
-                        budget_bytes: int = VMEM_BUDGET) -> int:
-    return choose_kernel_shape(cfg, S, budget_bytes)[0]
-
-
-def fits_vmem(cfg: AlignConfig, budget_bytes: int = VMEM_BUDGET) -> bool:
-    return kernel_vmem_bytes(cfg, 8) <= budget_bytes
-
-
-def slab_bound_ok(cfg: AlignConfig) -> bool:
-    """Whether ANY windows-per-slab choice stays under the Mosaic
-    select-chain compile bound — when false the config can never run on
-    the Pallas engine regardless of batch size (api reports it as a W/O
-    limit, not a batch-tiling problem)."""
-    return slab_words(cfg, 1) <= MAX_SLAB_WORDS
+def r_rows(cfg: AlignConfig, band: int) -> int:
+    """Rows of the per-block R buffer: d = 0..tb_cap plus the overhang of
+    the last band, whose rows past tb_cap are computed but never used."""
+    return cfg.tb_cap + band
 
 
 def pack_2bit(codes: jnp.ndarray) -> jnp.ndarray:
@@ -238,11 +136,17 @@ def pack_2bit_host(codes: np.ndarray) -> np.ndarray:
     return (grouped << shifts).sum(axis=2, dtype=np.uint32)
 
 
+# ---- multiword helpers on lists of (lanes,) uint32 words ----
+#
+# Every variable shift amount is kept inside [0, 31]: XLA defines a shift
+# by >= 32 as 0, but Triton lowers shifts to LLVM, where such a shift is
+# poison. Interpret mode cannot show the difference, so it is avoided by
+# construction.
+
 def _shl1_u32(v, W):
-    """Multiword shift-left-by-1 on a list of uint32 (sk,128) words."""
-    nw = len(v)
+    """Multiword shift-left-by-1 of a word list, top word masked to W."""
     out = []
-    for w in range(nw):
+    for w in range(len(v)):
         word = v[w] << 1
         if w > 0:
             word = word | (v[w - 1] >> 31)
@@ -253,13 +157,12 @@ def _shl1_u32(v, W):
 
 def _ones_shifted_u32(shift, W, nw):
     """Per-lane ones(W) << shift as a list of uint32 words."""
-    umax = jnp.full(shift.shape, 0xFFFFFFFF, jnp.uint32)
     out = []
     for w in range(nw):
         c = jnp.clip(shift - 32 * w, 0, 32)
         word = jnp.where(
-            c >= 32, jnp.uint32(0),
-            (umax.astype(jnp.int32) << jnp.minimum(c, 31)).astype(jnp.uint32))
+            c >= 32, jnp.int32(0),
+            jnp.int32(-1) << jnp.minimum(c, 31)).astype(jnp.uint32)
         out.append(word)
     out[-1] = out[-1] & jnp.uint32(bv.top_mask(W))
     return out
@@ -310,13 +213,20 @@ def _mw_below_u32(t, nwm):
 
 
 def _mw_ctz_u32(words):
-    """Index of the lowest set bit (int32), 32*len when all zero."""
+    """Index of the lowest set bit (int32), 32*len when all zero.
+
+    The isolated low bit's index is read off five masks, one per index
+    bit: Triton cannot lower lax.clz (math.ctlz) for the GPU."""
     nwm = len(words)
     res = jnp.full(words[0].shape, 32 * nwm, jnp.int32)
     for w in reversed(range(nwm)):
         x = words[w]
         lsb = x & (jnp.uint32(0) - x)
-        t = (31 - lax.clz(lsb).astype(jnp.int32)) + 32 * w
+        t = jnp.full(x.shape, 32 * w, jnp.int32)
+        for mask, weight in ((0xFFFF0000, 16), (0xFF00FF00, 8),
+                             (0xF0F0F0F0, 4), (0xCCCCCCCC, 2),
+                             (0xAAAAAAAA, 1)):
+            t = t + jnp.where((lsb & jnp.uint32(mask)) != 0, weight, 0)
         res = jnp.where(x != 0, t, res)
     return res
 
@@ -335,14 +245,8 @@ def _mw_bit_u32(words, t):
 
 
 def _select_word(idx, values):
-    """values[idx] (idx a traced array, values a static list) via a
-    log-depth balanced select tree.
-
-    Mosaic compile time explodes on long LINEAR select chains (a 35-word
-    chain did not finish compiling in 40 minutes; see MAX_SLAB_WORDS) —
-    the chain's dependency depth, not its op count, is what blows up. The
-    tree emits the same n-1 selects at depth log2(n), which compiles
-     30+-word selections in seconds and is what lets kw grow past 8."""
+    """values[idx] (idx a traced scalar, values a static list) via a
+    log-depth balanced select tree."""
     vals = list(values)
     bit = 1
     while len(vals) > 1:
@@ -356,369 +260,250 @@ def _select_word(idx, values):
     return vals[0]
 
 
-def _unpack_char(words, bit, nwd):
-    """Extract the 2-bit code at per-lane bit offset `bit` from the per-lane
-    word list `words` (each (sk,128) uint32). bit in [0, 32*nwd)."""
-    word = _select_word(bit >> 5, words[:nwd])
-    sh = bit & 31
-    return ((word.astype(jnp.int32) >> sh) & 3).astype(jnp.int32)
+def _pattern_masks(pw, lane_ones, W, NW):
+    """Per-char pattern bitmasks (genasm_cpu.cpp:178-198, MSB-aligned):
+    global bit gb holds pattern position j = W-1-gb; bits below s = W-m
+    are zeroed by lane_ones. pw: the window's aligned pattern words (char
+    16g+k in bits [2k, 2k+2) of word g).
+
+    Each word holds 16 chars, so char==c is one XOR + OR-collapse per
+    word; the 16 match bits are compacted (log-step pair packing) and
+    bit-reversed into their MSB-aligned place, which for a W that is not a
+    multiple of 16 may straddle two words or hang below bit 0 (the
+    overhang is chars past the window, shifted out)."""
+    lanes = lane_ones[0].shape
+    accs = [[jnp.zeros(lanes, jnp.uint32) for _ in range(NW)]
+            for _ in range(4)]
+    for g, val in enumerate(pw):
+        base = W - 16 * (g + 1)  # global bit of the group's reversed bit 0
+        for c in range(4):
+            x = val ^ jnp.uint32(c * 0x55555555)
+            z = x | (x >> 1)
+            y = (~z) & jnp.uint32(0x55555555)
+            y = (y | (y >> 1)) & jnp.uint32(0x33333333)
+            y = (y | (y >> 2)) & jnp.uint32(0x0F0F0F0F)
+            y = (y | (y >> 4)) & jnp.uint32(0x00FF00FF)
+            y = (y | (y >> 8)) & jnp.uint32(0x0000FFFF)
+            # reverse the 16 match bits (the mask is MSB-aligned)
+            y = ((y & jnp.uint32(0x5555)) << 1) | ((y >> 1) & jnp.uint32(0x5555))
+            y = ((y & jnp.uint32(0x3333)) << 2) | ((y >> 2) & jnp.uint32(0x3333))
+            y = ((y & jnp.uint32(0x0F0F)) << 4) | ((y >> 4) & jnp.uint32(0x0F0F))
+            y = ((y & jnp.uint32(0x00FF)) << 8) | ((y >> 8) & jnp.uint32(0x00FF))
+            for w in range(NW):
+                off = base - 32 * w  # static: where y's bit 0 lands in word w
+                if off >= 32 or off <= -16:
+                    continue
+                part = y << off if off >= 0 else y >> (-off)
+                accs[c][w] = accs[c][w] | part
+    return [[(~accs[c][w]) & lane_ones[w] for w in range(NW)]
+            for c in range(4)]
 
 
-def _multi_window_kernel(cfg: AlignConfig, kw: int,
-                         twords_ref, toff_ref, pwords_ref, poff_ref,
-                         tlen_ref, plen_ref,
-                         ref_in, read_in, ed_in, done_in, failed_in,
-                         ref_out, read_out, ed_out, done_out, failed_out,
-                         entries_ref, nfl_ref,
-                         R_ref, ff_ref, pmi_ref, upat_ref, ent_ref):
-    """KW consecutive alignment windows for one lane tile, carry included.
+def _window_kernel(cfg: AlignConfig, band: int, max_windows: int,
+                   tbuf_words: int, pbuf_words: int,
+                   tbuf_ref, tstart_ref, tlen_ref, pbuf_ref, pstart_ref,
+                   plen_ref, ent_in, cnt_in,
+                   ed_ref, failed_ref, ent_ref, cnt_ref, R_ref, ff_ref):
+    """Every window of PAIRS_PER_BLOCK pairs, carry included.
 
     Window semantics: genasm_cpu.cpp:210-438 (fill, traceback, windowing).
+    ent_in / cnt_in are the zero-filled buffers aliased to ent_ref /
+    cnt_ref: rows and windows the kernel never writes stay 0.
     """
-    W, K, O = cfg.W, cfg.K, cfg.O
+    del ent_in, cnt_in
+    W = cfg.W
     DCAP = cfg.tb_cap  # d-search cap; deeper windows fail to retry
     NW, FTW = cfg.num_words, cfg.first_tb_word
     NWH = cfg.num_tb_words
     COLS, TB = cfg.columns, cfg.tb_limit
     NWC = -(-COLS // 32)  # words of the per-lane traceback offset masks
-    NWD = slab_io_words(cfg, kw)
-    NE3 = tb_rows(cfg)
-    sk = tlen_ref.shape[0]
-    lane = (sk, LANE)
+    NA = -(-W // CHARS_PER_WORD)  # aligned words covering a window
     top_bit_off = (W - 1) % 32
 
     tlen = tlen_ref[...]
     plen = plen_ref[...]
-    # Normalize each lane's slab once: shift out the drift-margin word
-    # offset (one M+1-way select per kept word), so every later per-char
-    # unpack chains over the slab span only, not span+margin.
-    MARG = cfg.margin_words
-    NWDC = NWD - MARG
+    tstart = tstart_ref[...]
+    pstart = pstart_ref[...]
+    zero = jnp.zeros_like(tlen)
+    zero_u = jnp.zeros(tlen.shape, jnp.uint32)
 
-    def _normalize(words_ref, off_raw):
-        raw = [words_ref[wdi] for wdi in range(NWD)]
-        woff = off_raw >> 5
-        out = [_select_word(woff, raw[k : k + MARG + 1])
-               for k in range(NWDC)]
-        return out, off_raw & 31
+    def window_words(buf_ref, buf_words, pos):
+        """The NA words of chars pos .. pos+16*NA-1, re-aligned so char c
+        sits in bits [2(c%16), 2(c%16)+2) of word c//16. Reads past the
+        buffer end are clamped: those chars lie beyond the lane's text or
+        pattern length and are masked off."""
+        wb = (pos >> 4).astype(jnp.int32)
+        sh = (pos & jnp.uint32(15)) * jnp.uint32(2)
+        ish = (jnp.uint32(32) - sh) & jnp.uint32(31)
+        raw = [buf_ref[jnp.minimum(wb + k, buf_words - 1)]
+               for k in range(NA + 1)]
+        return [(raw[k] >> sh)
+                | jnp.where(sh == 0, jnp.uint32(0), raw[k + 1] << ish)
+                for k in range(NA)]
 
-    twords, toff0 = _normalize(twords_ref, toff_ref[...])
-    pwords, poff0 = _normalize(pwords_ref, poff_ref[...])
-
-    ref_idx = ref_in[...]
-    read_idx = read_in[...]
-    ed = ed_in[...]
-    done = done_in[...]  # int32 masks
-    failed = failed_in[...]
-    ref0 = ref_idx
-    read0 = read_idx
-
-    for k in range(kw):
-        m = jnp.where(done != 0, 0, jnp.clip(plen - read_idx, 0, W))
-        n = jnp.where(done != 0, 0, jnp.clip(tlen - ref_idx, 0, W))
+    def window(carry):
+        win, ref_idx, read_idx, ed, done, failed = carry
+        act = done == 0
+        m = jnp.where(act, jnp.clip(plen - read_idx, 0, W), 0)
+        n = jnp.where(act, jnp.clip(tlen - ref_idx, 0, W), 0)
         s = W - m
-        # steps needing the start-column select: per lane, step <= W-n+1.
-        # Done lanes (n forced 0) compute garbage on the fast path; every
-        # read of their results is masked, and d_cond treats them as found.
-        n_split = jnp.min(jnp.where(done != 0, W, n))
-        split = jnp.clip(W - n_split + 2, 2, W + 2)
         lane_ones = _ones_shifted_u32(s, W, NW)
-        toff_raw = toff0 + 2 * (ref_idx - ref0)
-        poff_raw = poff0 + 2 * (read_idx - read0)
+        tw = window_words(tbuf_ref, tbuf_words,
+                          tstart + ref_idx.astype(jnp.uint32))
+        pw = window_words(pbuf_ref, pbuf_words,
+                          pstart + read_idx.astype(jnp.uint32))
+        pmc = _pattern_masks(pw, lane_ones, W, NW)
 
-        # Per-window RE-BASE: select this window's <= WINW slab words once
-        # (tree depth log2(bound_k), bound_k grows with the window's slab
-        # position) so every later per-char/group unpack selects over WINW
-        # words instead of the whole slab. Without this the per-char
-        # select work scales with slab size and eats the dispatch savings
-        # of fusing more windows per slab (measured: kw=16/32 ran no
-        # faster than kw=8 before re-basing).
-        WINW = min(W // 16 + 2, NWDC)
-        # toff0 < 32 and the window advance is <= k*TB chars
-        bound = min(((30 + 2 * k * TB) >> 5) + 1, NWDC)
+        def pm_at(i):
+            # the text char of column i (i is the same for every lane);
+            # column W is always a start column, so its pm is unused
+            ic = jnp.clip(i, 0, W - 1)
+            word = _select_word(ic >> 4, tw)
+            t = (word >> ((ic & 15) * 2).astype(jnp.uint32)) & jnp.uint32(3)
+            out = []
+            for w in range(NW):
+                v = pmc[0][w]
+                for c in range(1, 4):
+                    v = jnp.where(t == c, pmc[c][w], v)
+                out.append(v)
+            return out
 
-        def _rebase(words, woff):
-            return [_select_word(woff, words[j : j + bound])
-                    for j in range(WINW)]
+        # ---- DP fill (genasm_cpu.cpp:210-288), one band of rows d0.. per
+        # pass. Row d at column i: right = (d, i+1), top = (d-1, i),
+        # top-right = (d-1, i+1); the recurrence is genasm_cpu.cpp:246-251.
+        def band_pass(d0, is_zero):
+            # is_zero is a PYTHON bool: the d=0 band is peeled so that only
+            # it carries the match-only recurrence of row 0
+            ones_k = [_ones_shifted_u32(s + d0 + k, W, NW)
+                      for k in range(band)]
 
-        twin = _rebase(twords, toff_raw >> 5)
-        pwin = _rebase(pwords, poff_raw >> 5)
-        toff = toff_raw & 31
-        poff = poff_raw & 31
-
-        def build_pm():
-            # ---- pattern bitmasks (genasm_cpu.cpp:178-198, MSB-aligned):
-            # global bit gb holds pattern position j = W-1-gb; bits below
-            # s are zeroed by the lane_ones mask ----
-            pmc = [[None] * NW for _ in range(4)]
-            if W % 16 == 0:
-                # Grouped build from the packed slab: each slab word holds
-                # 16 chars, so char==c is one XOR + OR-collapse per word;
-                # the 16 match bits are compacted (log-step pair packing)
-                # and bit-reversed into the MSB-aligned mask position.
-                # ~4x fewer ops and far less unrolled code than per-bit
-                # accumulation (Mosaic compile time scales with unrolled
-                # op count).
-                # poff < 32 after the window re-base, so group g's pair
-                # of source words is statically pwin[g], pwin[g+1] — no
-                # per-group selects at all
-                sh = poff.astype(jnp.uint32) & jnp.uint32(31)
-                ish = (jnp.uint32(32) - sh) & jnp.uint32(31)
-                accs = [[jnp.zeros(lane, jnp.uint32) for _ in range(NW)]
-                        for _ in range(4)]
-                pwin_x = pwin + [pwin[-1]]  # w1 dummy near slab end
-                for g in range(W // 16):
-                    w0 = pwin_x[min(g, WINW - 1)]
-                    w1 = pwin_x[min(g + 1, WINW)]
-                    val = (w0 >> sh) | jnp.where(sh == 0, jnp.uint32(0),
-                                                 w1 << ish)
-                    for c in range(4):
-                        x = val ^ jnp.uint32(c * 0x55555555)
-                        z = x | (x >> 1)
-                        y = (~z) & jnp.uint32(0x55555555)
-                        y = (y | (y >> 1)) & jnp.uint32(0x33333333)
-                        y = (y | (y >> 2)) & jnp.uint32(0x0F0F0F0F)
-                        y = (y | (y >> 4)) & jnp.uint32(0x00FF00FF)
-                        y = (y | (y >> 8)) & jnp.uint32(0x0000FFFF)
-                        # reverse the 16 match bits (mask is MSB-aligned)
-                        y = ((y & jnp.uint32(0x5555)) << 1) \
-                            | ((y >> 1) & jnp.uint32(0x5555))
-                        y = ((y & jnp.uint32(0x3333)) << 2) \
-                            | ((y >> 2) & jnp.uint32(0x3333))
-                        y = ((y & jnp.uint32(0x0F0F)) << 4) \
-                            | ((y >> 4) & jnp.uint32(0x0F0F))
-                        y = ((y & jnp.uint32(0x00FF)) << 8) \
-                            | ((y >> 8) & jnp.uint32(0x00FF))
-                        gb0 = W - 16 * (g + 1)
-                        accs[c][gb0 >> 5] = (accs[c][gb0 >> 5]
-                                             | (y << (gb0 & 31)))
-                for c in range(4):
-                    for w in range(NW):
-                        pmc[c][w] = (~accs[c][w]) & lane_ones[w]
-            else:
-                # odd widths: per-char accumulation via unpacked chars
-                for j in range(W):
-                    upat_ref[j] = _unpack_char(pwin, poff + 2 * j, WINW)
-                for c in range(4):
-                    for w in range(NW):
-                        acc = jnp.zeros(lane, jnp.uint32)
-                        bits_here = min(32, W - 32 * w)
-                        for b in range(bits_here):
-                            gb = 32 * w + b
-                            pos = upat_ref[W - 1 - gb]
-                            match = (pos == c)
-                            acc = acc | (match.astype(jnp.uint32) << b)
-                        pmc[c][w] = (~acc) & lane_ones[w]
-
-            def pm_body(i, _):
-                t = _unpack_char(twin, toff + 2 * i, WINW)
-                for w in range(NW):
-                    word = pmc[0][w]
-                    for c in range(1, 4):
-                        word = jnp.where(t == c, pmc[c][w], word)
-                    pmi_ref[i, w] = word
-                return 0
-
-            lax.fori_loop(0, W, pm_body, 0)
-
-        build_pm()
-        if _ABLATE == "pm2":
-            build_pm()
-
-        # ---- DP fill (genasm_cpu.cpp:210-288), two rows per i-pass ----
-        # Rows d (A) and d+1 (B) advance in one wavefront: at loop index i,
-        # A computes cell (d, i) and B computes cell (d+1, i+1). Row d's
-        # values flow to row d+1 entirely through registers (B's top is
-        # A's center from the previous step, and every shift B needs was
-        # already computed for A), so ff is read once and written once per
-        # TWO rows and the loop runs (W+2) steps per two rows instead of
-        # 2(W+1). The recurrence itself is exactly genasm_cpu.cpp:246-251.
-        def make_pair_body(is_zero):
-            # is_zero is a PYTHON bool: the d=0 pair is peeled out of the
-            # while_loop so general rows skip the is_zero select entirely
-            return functools.partial(_pair_body, is_zero)
-
-        def _pair_body(is_zero, st):
-            d, found, wed = st
-            ones_a = _ones_shifted_u32(s + d, W, NW)
-            ones_b = _ones_shifted_u32(s + d + 1, W, NW)
-
-            def i_body(with_start, step, carry):
-                i = W - step  # W .. -1
-                # A deps (row d, col i): rA = center_A(i+1), trA = top(i+1)
-                # = ff value read last step, sh_trA = its cached shift.
-                # B deps (row d+1, col i+1): rB = center_B(i+2),
-                # trB = center_A(i+2) (prev step's rA), sh_trB = its shift
-                # (prev step's sh_rA), top_B = center_A(i+1) = rA with
-                # shift sh_rA computed this step, pm at col i+1 = prev
-                # step's A pm.
-                rA, trA, sh_trA, rB, trB, sh_trB, pm_prev = carry
-                ic = jnp.maximum(i, 0)
-                top = [ff_ref[ic, w] for w in range(NW)]
-                ip = jnp.minimum(ic, W - 1)
-                cur_pm = [pmi_ref[ip, w] for w in range(NW)]
-                sh_rA = _shl1_u32(rA, W)
-                sh_tA = _shl1_u32(top, W)
-                sh_rB = _shl1_u32(rB, W)
-                if with_start:
-                    startA = i >= n
-                    startB = (i + 1) >= n
-                cA = []
-                cB = []
-                for w in range(NW):
-                    matA = sh_rA[w] | cur_pm[w]
-                    if is_zero:
-                        nsA = matA
+            def step(store_r, t, st):
+                i = W - t  # W .. 0
+                vals, shs, fr, fr_sh = st
+                pm = pm_at(i)
+                start = i >= n
+                if not is_zero:
+                    ftop = [ff_ref[i, w, :] for w in range(NW)]
+                    ftop_sh = _shl1_u32(ftop, W)
+                new_vals, new_shs = [], []
+                for k in range(band):
+                    if k == 0:
+                        if not is_zero:
+                            top_sh, tr, tr_sh = ftop_sh, fr, fr_sh
                     else:
-                        nsA = matA & sh_trA[w] & sh_tA[w] & trA[w]
-                    if with_start:
-                        nsA = jnp.where(startA, ones_a[w], nsA)
-                    cA.append(nsA)
-                    matB = sh_rB[w] | pm_prev[w]
-                    # terms: shl1(topright_B)=sh_trB, shl1(top_B)=sh_rA,
-                    # raw topright_B = trB (center_A at col i+2)
-                    fullB = matB & sh_trB[w] & sh_rA[w] & trB[w]
-                    if with_start:
-                        fullB = jnp.where(startB, ones_b[w], fullB)
-                    cB.append(fullB)
-
-                # writes: A is valid for i in [0, W]; B's column i+1 is
-                # valid for i in [-1, W-1]. Out-of-range steps write to
-                # dummy slots (row K+1 of R, row W+1 of ff) via scalar
-                # index selects — pl.when-guarded stores trip a Mosaic
-                # relayout bug. ff ends up holding row d+1.
-                rowA = jnp.where(i >= 0, d, DCAP + 1)
-                icol = jnp.minimum(jnp.maximum(i, 0), COLS - 1)
-                for w in range(NWH):
-                    R_ref[rowA, icol, w] = cA[FTW + w]
-
-                ffi = jnp.minimum(i + 1, W + 1)
+                        top_sh = new_shs[k - 1]
+                        tr, tr_sh = vals[k - 1], shs[k - 1]
+                    row = []
+                    for w in range(NW):
+                        mat = shs[k][w] | pm[w]
+                        if is_zero and k == 0:
+                            v = mat
+                        else:
+                            v = mat & tr_sh[w] & top_sh[w] & tr[w]
+                        row.append(jnp.where(start, ones_k[k][w], v))
+                    new_vals.append(row)
+                    new_shs.append(_shl1_u32(row, W))
+                    if store_r:
+                        for w in range(NWH):
+                            R_ref[d0 + k, i, w, :] = row[FTW + w]
                 for w in range(NW):
-                    ff_ref[ffi, w] = cB[w]
-                rowB = jnp.where((i + 1 <= W) & (d + 1 <= DCAP),
-                                 d + 1, DCAP + 1)
-                bcol = jnp.minimum(i + 1, COLS - 1)
-                for w in range(NWH):
-                    R_ref[rowB, bcol, w] = cB[FTW + w]
+                    ff_ref[i, w, :] = new_vals[-1][w]
+                if is_zero:
+                    return new_vals, new_shs, fr, fr_sh
+                return new_vals, new_shs, ftop, ftop_sh
 
-                return (tuple(cA), tuple(top), tuple(sh_tA),
-                        tuple(cB), tuple(rA), tuple(sh_rA),
-                        tuple(cur_pm))
+            z = [zero_u] * NW
+            st = ([z] * band, [z] * band, z, z)
+            # columns >= COLS are never traced back: no R store there
+            st = lax.fori_loop(0, W + 1 - COLS,
+                               functools.partial(step, False), st)
+            st = lax.fori_loop(W + 1 - COLS, W + 1,
+                               functools.partial(step, True), st)
+            return st[0]  # each band row at column 0 (the probe column)
 
-            # init the carry from VMEM reads (contents are never used: the
-            # first steps take the start-column paths). Splat-zero inits
-            # pin a replicated register layout through the pure-passthrough
-            # carry slots (trB = previous rA), which Mosaic then cannot
-            # unify with the computed values' layouts.
-            #
-            # Steps [0, split) run the start-select body; beyond split no
-            # lane can hit a start column (split = W - min(n) + 2), so the
-            # remaining steps drop the two compares and 2*NW selects.
-            z = tuple(ff_ref[W + 1, w] for w in range(NW))
-            mid = lax.fori_loop(0, split,
-                                functools.partial(i_body, True),
-                                (z, z, z, z, z, z, z))
-            fc = lax.fori_loop(split, W + 2,
-                               functools.partial(i_body, False), mid)
-            # the i==0 centers (full-match probe column) fall out of the
-            # final carry: slot 4 (trB) = cA of the i==0 step, slot 3 (rB)
-            # = cB of the i==-1 step, whose B column is 0.
-            probeA = fc[4][NW - 1]
-            probeB = fc[3][NW - 1]
+        def probe(vals, d0, found, wed):
+            for k in range(band):
+                hit = (((vals[k][NW - 1] >> top_bit_off) & 1) == 0) \
+                    & (d0 + k <= DCAP)
+                newly = hit & (found == 0)
+                wed = jnp.where(newly, d0 + k, wed)
+                found = jnp.where(newly, 1, found)
+            return found, wed
 
-            hitA = ((probeA >> top_bit_off) & 1) == 0
-            newlyA = hitA & (found == 0)
-            wed = jnp.where(newlyA, d, wed)
-            found = jnp.where(newlyA, 1, found)
-            if_b_valid = (d + 1) <= DCAP
-            hitB = (((probeB >> top_bit_off) & 1) == 0) & if_b_valid
-            newlyB = hitB & (found == 0)
-            wed = jnp.where(newlyB, d + 1, wed)
-            found = jnp.where(newlyB, 1, found)
-            return d + 2, found, wed
+        def d_body(st):
+            d0, found, wed = st
+            found, wed = probe(band_pass(d0, False), d0, found, wed)
+            return d0 + band, found, wed
 
         def d_cond(st):
-            d, found, _ = st
-            in_range = d <= DCAP
+            d0, found, _ = st
+            go = d0 <= DCAP
             if cfg.early_termination:
-                # done lanes may never probe a match (their fill is
-                # garbage past the select split) — treat them as found
-                return in_range & ~jnp.all((found != 0) | (done != 0))
-            return in_range
+                # done lanes never probe a match: treat them as found
+                pending = jnp.where((found != 0) | (done != 0), 0, 1)
+                go = go & (jnp.max(pending) > 0)
+            return go
 
-        def run_fill():
-            found0 = jnp.zeros(lane, jnp.int32)
-            wed0 = jnp.zeros(lane, jnp.int32)
-            # peel the d=0 pair (match-only recurrence on row 0), then
-            # loop the general pairs from d=2
-            st1 = make_pair_body(True)((jnp.int32(0), found0, wed0))
-            _, found_i, wed_ = lax.while_loop(
-                d_cond, make_pair_body(False), st1)
-            fnd = found_i != 0
-            return fnd, jnp.where(fnd & (done == 0), wed_, 0)
+        found, wed = probe(band_pass(jnp.int32(0), True), 0, zero, zero)
+        _, found, wed = lax.while_loop(
+            d_cond, d_body, (jnp.int32(band), found, wed))
+        found = found != 0
+        wed = jnp.where(found & act, wed, 0)
 
-        found, wed = run_fill()
-        if _ABLATE == "fill2":
-            found, wed = run_fill()
+        # ---- traceback (genasm_cpu.cpp:290-409), lockstep d-level sweep.
+        # Within one d-level a lane runs one '='-run and then at most one
+        # edit op (the edit drops it to the next level), so every level
+        # emits one pair-packed row: the pending edit-run flush in the low
+        # halfword, the level's '='-run in the high one.
+        max_d = jnp.max(wed)
 
-        # ---- traceback (genasm_cpu.cpp:290-409), lockstep d-level sweep
-        #
-        # Emission is PER LEVEL, not per run: within one d-level a lane
-        # does a single '='-run followed by at most one edit op (the edit
-        # is what drops it to the next level), so each level needs exactly
-        # two scalar-indexed row stores. Runs that span levels (e.g. "III")
-        # are merged vectorized on the XLA side (merge_level_runs). This
-        # replaced a per-step masked RMW over the whole (NE, sk, 128)
-        # entry scratch, which the ablation knob measured at ~52% of total
-        # kernel time (the RMW traffic ran every step: with 4096 lanes per
-        # tile, some lane flushes at essentially every step).
         def level_body(st):
             lvl, i, j, dd, fin, pend_op, pend_cnt, nfl = st
             L = lvl - 1
             active = (fin == 0) & (dd == lvl)
 
-            # Closed-form level step (no per-step inner loop): within one
-            # d-level a lane runs '='s along the DIAGONAL (i+t, j+t) until
-            # the first offset t where an edit becomes legal (priority
-            # I>D>X, genasm_cpu.cpp:346-370) or a TB_LIMIT/window bound
-            # terminates it. One pass over the stored columns extracts the
-            # three decision bits for ALL offsets into packed per-lane
-            # masks; the run length is then a count-trailing-zeros. At
-            # offset t the sequential tracer inspects
+            # Closed-form level step: a lane runs '='s along the diagonal
+            # (i+t, j+t) until the first offset t where an edit becomes
+            # legal (priority I>D>X, genasm_cpu.cpp:346-370) or a
+            # TB_LIMIT/window bound ends it. At offset t the tracer reads
             #   zA(t):  bit (W-2-j-t) of R[L, i+t]    (insertion)
             #   zB0(t): bit (W-1-j-t) of R[L, i+t+1]  (deletion)
             #   zB1(t): bit (W-2-j-t) of R[L, i+t+1]  (substitution)
-            # i.e. for column c the bit positions are (bA - c), (bB - c),
-            # (bB - 1 - c) with bA = W-2-j+i, bB = W-1-j+i+1 ... built
-            # column-indexed (bit c, scalar shifts), then one per-lane
-            # funnel shift by i (A) / i+1 (B) re-indexes them by t.
+            # One pass over the stored columns packs these bits
+            # column-indexed (bit c); a per-lane funnel shift by i (A) /
+            # i+1 (B) re-indexes them by t; the run length is a ctz.
             bA = (W - 2) - j + i
             bB = (W - 1) - j + (i + 1)
-            zero = jnp.zeros(lane, jnp.uint32)
-            McA = [zero] * NWC
-            McB0 = [zero] * NWC
-            McB1 = [zero] * NWC
-            for c in range(COLS):
-                words = [R_ref[L, c, w] for w in range(NWH)]
-                # bit positions clamped for shift safety; out-of-range
-                # extractions are garbage only at offsets t that
-                # min(t_stop, t_term) already excludes (the DENT store
-                # covers every traceback-reachable bit)
-                pA = jnp.clip(bA - c, 0, W - 1)
-                pB0 = jnp.clip(bB - c, 0, W - 1)
-                pB1 = jnp.clip(bB - 1 - c, 0, W - 1)
-                bits = []
-                for p in (pA, pB0, pB1):
+
+            def column(cw, cb, masks):
+                # column c = 32*cw + cb sets bit cb of word cw of each mask.
+                # A loop, not an unrolled pass: at W=256 (128 columns) the
+                # unrolled pass took the GPU compiler minutes.
+                c = 32 * cw + cb
+                words = [R_ref[L, c, w, :] for w in range(NWH)]
+                # positions clamped for shift safety; out-of-range bits are
+                # read only at offsets min(t_stop, t_term) excludes
+                out = []
+                for p, mask in zip((bA - c, bB - c, bB - 1 - c), masks):
+                    p = jnp.clip(p, 0, W - 1)
                     wsel = words[0]
                     for wd in range(1, NWH):
                         wsel = jnp.where((p >> 5) == (FTW + wd),
                                          words[wd], wsel)
-                    bits.append(
-                        ((wsel >> (p & 31).astype(jnp.uint32)) & 1) ^ 1)
-                cw, cb = c >> 5, c & 31
-                McA[cw] = McA[cw] | (bits[0] << cb)
-                McB0[cw] = McB0[cw] | (bits[1] << cb)
-                McB1[cw] = McB1[cw] | (bits[2] << cb)
+                    bit = (((wsel >> (p & 31).astype(jnp.uint32))
+                            & jnp.uint32(1)) ^ jnp.uint32(1))
+                    out.append(mask | (bit << cb.astype(jnp.uint32)))
+                return tuple(out)
+
+            McA, McB0, McB1 = [], [], []
+            for cw in range(NWC):
+                a, b0, b1 = lax.fori_loop(
+                    0, min(32, COLS - 32 * cw),
+                    functools.partial(column, cw),
+                    (zero_u, zero_u, zero_u))
+                McA.append(a)
+                McB0.append(b0)
+                McB1.append(b1)
 
             MA = _mw_shr_u32(McA, i)
             MB0 = _mw_shr_u32(McB0, i + 1)
@@ -741,406 +526,204 @@ def _multi_window_kernel(cfg: AlignConfig, kw: int,
                 jnp.where(_mw_bit_u32(m_del, t_stop), OP_D, OP_X))
 
             eq = jnp.where(active, run, 0)
-            ed = jnp.where(does_edit, op, OP_NONE)
+            edop = jnp.where(does_edit, op, OP_NONE)
             i = i + eq + jnp.where(does_edit & (op != OP_I), 1, 0)
             j = j + eq + jnp.where(does_edit & (op != OP_D), 1, 0)
             dd = dd - does_edit.astype(jnp.int32)
             fin = jnp.where(active & ~does_edit, 1, fin)
 
-            # Emission with a pending-edit-run carry: consecutive same-op
-            # edits across levels (e.g. "III") accumulate in registers and
-            # flush as ONE row, so every non-empty row is already a
-            # MAXIMAL CIGAR run — no downstream merging. A lane with a
-            # pending run is always active at the next level (dd drops by
-            # exactly 1 per edit), so the carry can never skip its flush.
-            base = 2 * (max_d - lvl)
-            ext = ((eq == 0) & (ed != OP_NONE) & (ed == pend_op)
+            # Pending-edit-run carry: consecutive same-op edits across
+            # levels (e.g. "III") accumulate in registers and flush as ONE
+            # run, so every non-empty slot is a MAXIMAL CIGAR run. A lane
+            # with a pending run is always active at the next level (dd
+            # drops by exactly 1 per edit), so its flush is never skipped.
+            ext = ((eq == 0) & (edop != OP_NONE) & (edop == pend_op)
                    & (pend_cnt > 0))
             fl = (pend_cnt > 0) & ~ext
-            ent_ref[base] = jnp.where(
-                fl, (pend_op << ENTRY_OP_SHIFT) | pend_cnt, 0)
-            ent_ref[base + 1] = jnp.where(
-                eq > 0, (OP_EQ << ENTRY_OP_SHIFT) | eq, 0)
+            lo = jnp.where(fl, (pend_op << ENTRY_OP_SHIFT) | pend_cnt, 0)
+            hi = jnp.where(eq > 0, (OP_EQ << ENTRY_OP_SHIFT) | eq, 0)
+            ent_ref[win, max_d - lvl, :] = lo | (hi << 16)
             nfl = nfl + fl.astype(jnp.int32) + (eq > 0).astype(jnp.int32)
             pend_cnt = jnp.where(ext, pend_cnt + 1,
-                                 jnp.where(ed != OP_NONE, 1, 0))
-            pend_op = ed  # when ext, ed == pend_op already
+                                 jnp.where(edop != OP_NONE, 1, 0))
+            pend_op = edop  # when ext, edop == pend_op already
             return lvl - 1, i, j, dd, fin, pend_op, pend_cnt, nfl
 
-        def run_tb():
-            ent_ref[...] = jnp.zeros((NE3,) + lane, jnp.int32)
-            i0 = jnp.zeros(lane, jnp.int32)
-            j0 = jnp.zeros(lane, jnp.int32)
-            fin0 = (j0 >= m).astype(jnp.int32)
-            pend_op0 = jnp.full(lane, OP_NONE, jnp.int32)
-            z0 = jnp.zeros(lane, jnp.int32)
-            _, i, j, dd, fin, pend_op, pend_cnt, nfl = lax.while_loop(
-                lambda st: st[0] >= 1, level_body,
-                (max_d, i0, j0, wed, fin0, pend_op0, z0, z0))
+        fin0 = (m <= 0).astype(jnp.int32)  # `while (j < m)` entry check
+        pend_op0 = jnp.full(tlen.shape, OP_NONE, jnp.int32)
+        _, i, j, dd, fin, pend_op, pend_cnt, nfl = lax.while_loop(
+            lambda st: st[0] >= 1, level_body,
+            (max_d, zero, zero, wed, fin0, pend_op0, zero, zero))
 
-            # final d==0 phase: flush any pending edit run, then the
-            # closed-form '=' run (check-before-step)
-            active0 = (fin == 0) & (dd == 0)
-            run = jnp.minimum(jnp.minimum(m - j, TB - i), TB - j)
-            run = jnp.where(active0, jnp.maximum(run, 0), 0)
-            fl0 = pend_cnt > 0
-            ent_ref[2 * max_d] = jnp.where(
-                fl0, (pend_op << ENTRY_OP_SHIFT) | pend_cnt, 0)
-            ent_ref[2 * max_d + 1] = jnp.where(
-                run > 0, (OP_EQ << ENTRY_OP_SHIFT) | run, 0)
-            nfl = (nfl + fl0.astype(jnp.int32)
-                   + (run > 0).astype(jnp.int32))
-            i = i + run
-            j = j + run
+        # final d==0 phase: flush any pending edit run, then the
+        # closed-form '=' run (check-before-step)
+        active0 = (fin == 0) & (dd == 0)
+        run = jnp.minimum(jnp.minimum(m - j, TB - i), TB - j)
+        run = jnp.where(active0, jnp.maximum(run, 0), 0)
+        fl0 = pend_cnt > 0
+        lo = jnp.where(fl0, (pend_op << ENTRY_OP_SHIFT) | pend_cnt, 0)
+        hi = jnp.where(run > 0, (OP_EQ << ENTRY_OP_SHIFT) | run, 0)
+        ent_ref[win, max_d, :] = lo | (hi << 16)
+        nfl = nfl + fl0.astype(jnp.int32) + (run > 0).astype(jnp.int32)
+        i = i + run
+        j = j + run
+        # each emitted edit op decremented dd by exactly one, so the edits
+        # the kept traceback prefix used = wed - dd
+        edits_used = wed - dd
 
-            # each emitted edit op decremented dd by exactly one, so the
-            # edits actually used by the kept traceback prefix = wed - dd
-            return i, j, wed - dd, nfl
-
-        max_d = jnp.max(wed)
-        i, j, edits_used, nfl = run_tb()
-        if _ABLATE == "tb2":
-            i, j, edits_used, nfl = run_tb()
-
-        # ---- carry update (genasm_cpu.cpp:432-435) ----
-        # failed is a per-lane reason BITMASK (FAIL_* constants): the
-        # in-kernel analogue of the reference's DEBUG dead-end traceback
-        # check (genasm_cpu.cpp:362-385) — instead of an assert, the
-        # cause is recorded and surfaced through AlignStats telemetry.
-        active = done == 0
-        window_failed = active & ~found
-        stalled = active & found & (i == 0) & (j == 0)
+        # ---- carry update (genasm_cpu.cpp:432-435); failed is a per-lane
+        # reason bitmask (FAIL_*) instead of the reference's DEBUG assert
+        window_failed = act & ~found
+        stalled = act & found & (i == 0) & (j == 0)
         failed = (failed
                   | jnp.where(window_failed, FAIL_TB, 0)
                   | jnp.where(stalled, FAIL_STALL, 0))
-        take = active & ~window_failed & ~stalled
+        take = act & ~window_failed & ~stalled
         ed = ed + jnp.where(take, edits_used, 0)
         ref_idx = ref_idx + jnp.where(take, i, 0)
         read_idx = read_idx + jnp.where(take, j, 0)
         done = ((read_idx >= plen) | (failed != 0)).astype(jnp.int32)
+        cnt_ref[win, :] = jnp.where(take, nfl, 0)
+        return win + 1, ref_idx, read_idx, ed, done, failed
 
-        # pack row pairs (2j, 2j+1) into one int32 word (each packed run
-        # is op << 12 | cnt <= 0x3FFF): halves the kernel's HBM output
-        # traffic — the entries store is the kernel's largest write
-        # (NE3 * kw * 4 bytes/lane/slab)
-        NE3H = NE3 // 2
-        for j in range(NE3H):
-            entries_ref[k * NE3H + j] = (ent_ref[2 * j]
-                                         | (ent_ref[2 * j + 1] << 16))
-        nfl_ref[k] = jnp.where(take, nfl, 0)
+    def more(carry):
+        win, done = carry[0], carry[4]
+        return (win < max_windows) & (jnp.max(1 - done) > 0)
 
-    ref_out[...] = ref_idx
-    read_out[...] = read_idx
-    ed_out[...] = ed
-    done_out[...] = done
-    failed_out[...] = failed
+    done0 = (plen <= 0).astype(jnp.int32)
+    _, _, read_idx, ed, _, failed = lax.while_loop(
+        more, window, (jnp.int32(0), zero, zero, zero, done0, zero))
+    ed_ref[...] = ed
+    failed_ref[...] = failed | jnp.where(
+        (failed == 0) & (read_idx < plen), FAIL_INCOMPLETE, 0)
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2))
-def slab_step_kernel(cfg: AlignConfig, kw: int, sk: int,
-                     twords, toff, pwords, poff, tlen, plen,
-                     ref_idx, read_idx, ed, done, failed):
-    """Run the fused KW-window kernel over the batch.
-
-    twords/pwords: (NWD, S, 128) uint32 packed slab words; toff/poff:
-    (S, 128) int32 slab-start bit offsets; the remaining args are the
-    (S, 128) int32 windowing carry. Returns the updated carry plus
-    PAIR-PACKED entries (KW*NE/2, S, 128) int32 — rows (2j, 2j+1) of each
-    window's sparse run rows in the low/high halfwords — and per-window
-    run counts (KW, S, 128).
-    """
-    W = cfg.W
-    NWD = slab_io_words(cfg, kw)
-    NE3 = tb_rows(cfg)
-    NE3H = NE3 // 2
-    S = tlen.shape[0]
-    assert S % sk == 0, (S, sk)
-    grid = (S // sk,)
-
-    def im3(t):
-        return (0, t, 0)
-
-    def im2(t):
-        return (t, 0)
-
-    lane2 = pl.BlockSpec((sk, LANE), im2, memory_space=pltpu.VMEM)
-    slab3 = pl.BlockSpec((NWD, sk, LANE), im3, memory_space=pltpu.VMEM)
-
-    out_shape = [
-        jax.ShapeDtypeStruct((S, LANE), jnp.int32),  # ref_idx
-        jax.ShapeDtypeStruct((S, LANE), jnp.int32),  # read_idx
-        jax.ShapeDtypeStruct((S, LANE), jnp.int32),  # ed
-        jax.ShapeDtypeStruct((S, LANE), jnp.int32),  # done
-        jax.ShapeDtypeStruct((S, LANE), jnp.int32),  # failed
-        jax.ShapeDtypeStruct((kw * NE3H, S, LANE), jnp.int32),  # level runs
-        jax.ShapeDtypeStruct((kw, S, LANE), jnp.int32),  # runs per window
-    ]
-    out_specs = [
-        lane2, lane2, lane2, lane2, lane2,
-        pl.BlockSpec((kw * NE3H, sk, LANE), im3, memory_space=pltpu.VMEM),
-        pl.BlockSpec((kw, sk, LANE), im3, memory_space=pltpu.VMEM),
-    ]
-    in_specs = [slab3, lane2, slab3, lane2, lane2, lane2,
-                lane2, lane2, lane2, lane2, lane2]
-    scratch_shapes = [
-        # tb_cap+2 rows: the device engine caps the d-search at tb_cap
-        # (deeper windows fail to the exact retry path); the extra row is
-        # the wavefront's discard sink
-        pltpu.VMEM((cfg.tb_cap + 2, cfg.columns, cfg.num_tb_words, sk, LANE),
-                   jnp.uint32),  # R
-        # W+2: slot W+1 is the wavefront's dummy sink (and the carry init)
-        pltpu.VMEM((W + 2, cfg.num_words, sk, LANE), jnp.uint32),  # forefront
-        pltpu.VMEM((W, cfg.num_words, sk, LANE), jnp.uint32),  # pmi
-        # unpacked pattern chars (odd-W pm path only)
-        pltpu.VMEM((W if W % 16 else 1, sk, LANE), jnp.int32),
-        pltpu.VMEM((NE3, sk, LANE), jnp.int32),  # per-window level-run rows
-    ]
-    # off-TPU (tests, virtual CPU meshes) the kernel runs in interpreter
-    # mode: slow but bit-identical, so parity tests cover the same code
-    interpret = jax.default_backend() != "tpu"
-    return pl.pallas_call(
-        functools.partial(_multi_window_kernel, cfg, kw),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
-        compiler_params=pltpu.CompilerParams(
-            # track the shape chooser's budget (the env knob is meant for
-            # probing bigger shapes — a fixed limit below the budget would
-            # reject the very shapes the chooser accepted)
-            vmem_limit_bytes=max(100 * 1024 * 1024, VMEM_BUDGET + (8 << 20)),
-        ),
-        interpret=interpret,
-    )(twords, toff, pwords, poff, tlen, plen,
-      ref_idx, read_idx, ed, done, failed)
+def check_device(cfg: AlignConfig) -> None:
+    """The kernel is compiled for NVIDIA GPUs; anywhere else it runs only
+    when interpret mode is asked for explicitly (cfg.interpret)."""
+    if not cfg.interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the Pallas window kernel needs a GPU (found backend "
+            f"{jax.default_backend()!r}); use backend='xla', or "
+            "AlignConfig(interpret=True) to run it in the interpreter")
 
 
-def _align_scan(cfg: AlignConfig, sk: int, kw: int, max_windows: int,
-                text_t, tphase, text_len, pattern_t, pattern_len
-                ) -> BatchResult:
-    """Slab scan over the batch: ceil(max_windows/kw) kernel invocations.
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _align(cfg: AlignConfig, max_windows: int, tbuf, tstart, tlen,
+           pbuf, pstart, plen) -> BatchResult:
+    """Run the window kernel over a batch. tbuf / pbuf: flat uint32
+    pack_2bit word buffers; tstart / pstart: (B,) uint32 char offset of
+    each lane's text / pattern in them; tlen / plen: (B,) lengths."""
+    check_device(cfg)
+    bl, band = choose_kernel_shape(cfg)
+    if not bl:
+        raise ValueError(
+            f"W={cfg.W}: the kernel's register state does not fit; "
+            "use backend='xla'")
+    B = tlen.shape[0]
+    Bp = -(-B // bl) * bl  # whole blocks; pad lanes have length 0 (done)
+    if Bp != B:
+        def pad(x):
+            return jnp.pad(x, (0, Bp - B))
+        tstart, tlen, pstart, plen = map(pad, (tstart, tlen, pstart, plen))
+    NE3H = tb_rows(cfg) // 2
+    lane = pl.BlockSpec((bl,), lambda t: (t,))
 
-    text_t / pattern_t: word-major (Wd, B) uint32 pack_2bit buffers,
-    padded to at least slab_io_words rows. tphase: (B,) int32 char phase
-    of each lane's word-0 (0 for row-local buffers; starts & 15 for the
-    shared-genome segment buffer). Each slab is ONE contiguous
-    dynamic_slice at the active lanes' minimum word base; per-lane word
-    offsets up to SLAB_MARGIN_WORDS resolve in-kernel via the slab bit
-    offset, and lanes beyond the margin fail to the exact retry path.
-    """
-    B = pattern_t.shape[1]
-    if B % LANE != 0:
-        raise ValueError("batch must be a multiple of 128 lanes")
-    S = B // LANE
-    lane = (S, LANE)
-    tlen = text_len.astype(jnp.int32).reshape(lane)
-    plen = pattern_len.astype(jnp.int32).reshape(lane)
-    NWD2 = slab_io_words(cfg, kw)
-    M = cfg.margin_words
-    NE3 = tb_rows(cfg)
-    n_steps = -(-max_windows // kw)
-    tphase = tphase.astype(jnp.int32).reshape(B)
+    def whole(x):
+        return pl.BlockSpec(x.shape, lambda t: (0,))
 
-    def slab_slice(buf_t, cpos, act):
-        """One contiguous slab for the whole batch: words (NWD2, B),
-        per-lane in-slab bit offsets, and the beyond-margin mask.
-
-        The base is the active lanes' minimum word position while every
-        active lane fits the drift margin (the common case: all survive).
-        When the spread exceeds the margin, somebody must fail — the base
-        centers on the ACTIVE MEAN, which tracks the bulk of the pack, so
-        a single pathological outlier in either direction (an insertion-
-        dominated laggard whose text cursor crawls, or a deletion-rich
-        leader racing ahead) fails alone instead of dragging the base
-        with it and spuriously failing every other lane to the retry
-        path. The mean is robust here: one outlier among thousands of
-        lanes moves it by drift/B words."""
-        wd = buf_t.shape[0]
-        w0 = cpos >> 4
-        w0min = jnp.min(jnp.where(act, w0, jnp.int32(1 << 30)))
-        w0max = jnp.max(jnp.where(act, w0, jnp.int32(-1)))
-        n_act = jnp.maximum(jnp.sum(act.astype(jnp.int32)), 1)
-        w0mean = jnp.sum(jnp.where(act, w0, 0)) // n_act
-        centered = jnp.clip(w0mean - M // 2, w0min, w0max)
-        base = jnp.where(w0max - w0min <= M, w0min, centered)
-        base = jnp.clip(base, 0, max(wd - NWD2, 0))
-        words = lax.dynamic_slice(buf_t, (base, jnp.int32(0)), (NWD2, B))
-        woff = w0 - base
-        bad = act & ((woff < 0) | (woff > M))
-        off = ((cpos & 15) * 2 + jnp.clip(woff, 0, M) * 32)
-        return words, off.astype(jnp.int32), bad
-
-    carry0 = (
-        jnp.zeros(lane, jnp.int32),  # ref_idx
-        jnp.zeros(lane, jnp.int32),  # read_idx
-        jnp.zeros(lane, jnp.int32),  # edit distance
-        (plen <= 0).astype(jnp.int32),  # done
-        jnp.zeros(lane, jnp.int32),  # failed
-    )
-
-    # while-based slab loop with early exit once every lane is done (a
-    # fixed-length scan would run inert tail slabs: lanes finish at
-    # data-dependent windows and maxw is a worst-case bound)
-    NE3H = NE3 // 2
-    # pair-packed kernel rows (two uint16 runs per int32, see
-    # slab_step_kernel); unpacked once after the loop
-    ents0 = jnp.zeros((n_steps, kw, NE3H, B), jnp.int32)
-    cnts0 = jnp.zeros((n_steps, kw, B), jnp.int32)
-
-    def loop_cond(st):
-        step, carry, _, _ = st
-        done = carry[3]
-        return (step < n_steps) & ~jnp.all(done != 0)
-
-    def loop_body(st):
-        step, carry, ents, cnts = st
-        ref_idx, read_idx, ed, done, failed = carry
-
-        act = (done == 0).reshape(B)
-        twords, toff, bad_t = slab_slice(text_t,
-                                         tphase + ref_idx.reshape(B), act)
-        pwords, poff, bad_p = slab_slice(pattern_t, read_idx.reshape(B),
-                                         act)
-        bad = (bad_t | bad_p).reshape(lane)
-        done = jnp.where(bad, 1, done)
-        failed = failed | jnp.where(bad, FAIL_DRIFT, 0)
-
-        (ref_idx, read_idx, ed, done, failed, entries_i, nfl
-         ) = slab_step_kernel(
-            cfg, kw, sk, twords.reshape(NWD2, S, LANE),
-            toff.reshape(lane), pwords.reshape(NWD2, S, LANE),
-            poff.reshape(lane), tlen, plen,
-            ref_idx, read_idx, ed, done, failed)
-
-        ents = lax.dynamic_update_slice(
-            ents, entries_i.reshape(1, kw, NE3H, B), (step, 0, 0, 0))
-        cnts = lax.dynamic_update_slice(
-            cnts, nfl.reshape(1, kw, B), (step, 0, 0))
-        new_carry = (ref_idx, read_idx, ed, done, failed)
-        return step + 1, new_carry, ents, cnts
-
-    _, carry, entries, counts = lax.while_loop(
-        loop_cond, loop_body, (jnp.int32(0), carry0, ents0, cnts0))
-
-    _, read_idx, ed, done, failed = carry
-    failed = failed | jnp.where((failed == 0) & (read_idx < plen),
-                                FAIL_INCOMPLETE, 0)
-
-    # SPARSE rows (tb_rows wide): non-empty slots are complete maximal
-    # runs in order. The engine returns them PAIR-PACKED — (maxw, NE3/2,
-    # B) int32, rows (2j, 2j+1) in the low/high halfwords — and the
-    # unpack is deferred into the consumers' jits (unpack_entry_pairs /
-    # the compactors), where XLA fuses it into their first elementwise
-    # pass: materializing the unpacked u16 store here cost a 1.9 GB
-    # write + re-read per headline batch for nothing.
-    entries = entries.reshape(n_steps * kw, NE3H, B)
-    counts = counts.reshape(n_steps * kw, B).astype(jnp.int32)
-    if n_steps * kw > max_windows:
-        # the slab loop runs whole slabs, so when kw does not divide
-        # max_windows the scan grants up to kw-1 extra trailing windows.
-        # Those are outside the contract (engine_xla runs EXACTLY
-        # max_windows): lanes that emitted anything there fail instead of
-        # silently succeeding where the XLA engine reports failure.
-        extra_used = counts[max_windows:].sum(axis=0) > 0
-        failed = failed | jnp.where(extra_used.reshape(failed.shape),
-                                    FAIL_INCOMPLETE, 0)
-        entries = entries[:max_windows]
-        counts = counts[:max_windows]
-    return BatchResult(
-        edit_distance=ed.reshape(B),
-        # int32 reason bitmask (FAIL_*); nonzero = lane needs retry
-        failed=failed.reshape(B),
-        entries=entries,
-        counts=counts,
-    )
+    ent_spec = pl.BlockSpec((max_windows, NE3H, bl), lambda t: (0, 0, t))
+    cnt_spec = pl.BlockSpec((max_windows, bl), lambda t: (0, t))
+    nrows = r_rows(cfg, band)
+    r_spec = pl.BlockSpec((nrows, cfg.columns, cfg.num_tb_words, bl),
+                          lambda t: (0, 0, 0, t))
+    ff_spec = pl.BlockSpec((cfg.W + 1, cfg.num_words, bl),
+                           lambda t: (0, 0, t))
+    ent0 = jnp.zeros((max_windows, NE3H, Bp), jnp.int32)
+    cnt0 = jnp.zeros((max_windows, Bp), jnp.int32)
+    ed, failed, entries, counts, _, _ = pl.pallas_call(
+        functools.partial(_window_kernel, cfg, band, max_windows,
+                          tbuf.shape[0], pbuf.shape[0]),
+        grid=(Bp // bl,),
+        in_specs=[whole(tbuf), lane, lane, whole(pbuf), lane, lane,
+                  ent_spec, cnt_spec],
+        out_specs=[lane, lane, ent_spec, cnt_spec, r_spec, ff_spec],
+        out_shape=[
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),  # edit distance
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),  # failure reasons
+            jax.ShapeDtypeStruct(ent0.shape, jnp.int32),  # level runs
+            jax.ShapeDtypeStruct(cnt0.shape, jnp.int32),  # runs/window
+            # per-block R table and forefront (no scratch on this route)
+            jax.ShapeDtypeStruct(
+                (nrows, cfg.columns, cfg.num_tb_words, Bp), jnp.uint32),
+            jax.ShapeDtypeStruct((cfg.W + 1, cfg.num_words, Bp),
+                                 jnp.uint32),
+        ],
+        input_output_aliases={6: 2, 7: 3},
+        compiler_params=pl_triton.CompilerParams(num_warps=bl // 32,
+                                                 num_stages=1),
+        backend="triton",
+        interpret=cfg.interpret,
+        name="genasm_windows",
+    )(tbuf, tstart.astype(jnp.uint32), tlen.astype(jnp.int32),
+      pbuf, pstart.astype(jnp.uint32), plen.astype(jnp.int32), ent0, cnt0)
+    # SPARSE rows (tb_rows wide, returned PAIR-PACKED: (maxw, NE3/2, B)
+    # int32, rows (2j, 2j+1) in the low/high halfwords): non-empty slots
+    # are complete maximal runs in order. The unpack is deferred into the
+    # consumers' jits (unpack_entry_pairs), where XLA fuses it into their
+    # first elementwise pass.
+    return BatchResult(edit_distance=ed[:B], failed=failed[:B],
+                       entries=entries[:, :, :B], counts=counts[:, :B])
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def align_batch(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
-                text_words, text_len, pattern_words,
-                pattern_len) -> BatchResult:
-    """Pallas-engine unstructured batch alignment. text_words /
+def _row_starts(B: int, row_words: int):
+    """Char offset of each row of a row-major (B, row_words) word buffer."""
+    return jnp.arange(B, dtype=jnp.uint32) * jnp.uint32(
+        row_words * CHARS_PER_WORD)
+
+
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def align_batch(cfg: AlignConfig, max_windows: int, text_words, text_len,
+                pattern_words, pattern_len) -> BatchResult:
+    """Kernel-engine unstructured batch alignment. text_words /
     pattern_words: (B, ceil(T/16)) / (B, ceil(P/16)) uint32 pack_2bit
-    words (pack on host with pack_2bit_host). Buffers are transposed to
-    word-major once here; slabs are then contiguous slices (no gathers)."""
-    B = text_words.shape[0]
-    NWD2 = slab_io_words(cfg, kw)
-
-    def prep(words):
-        # always pad a full slice width: the slab slice must be able to
-        # START at the last real word without the in-bounds clamp pulling
-        # the base back (which would blow per-lane offsets past the
-        # margin and spuriously fail every lane near its sequence end)
-        return jnp.pad(words, ((0, 0), (0, NWD2))).T
-
-    tphase = jnp.zeros((B,), jnp.int32)
-    return _align_scan(cfg, sk, kw, max_windows, prep(text_words), tphase,
-                       text_len, prep(pattern_words), pattern_len)
+    words (pack on host with pack_2bit_host)."""
+    B, Tw = text_words.shape
+    Pw = pattern_words.shape[1]
+    return _align(cfg, max_windows, text_words.reshape(B * Tw),
+                  _row_starts(B, Tw), text_len,
+                  pattern_words.reshape(B * Pw), _row_starts(B, Pw),
+                  pattern_len)
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def align_batch_mapped(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
-                       genome_words, starts, text_len,
-                       pattern_words, pattern_len) -> BatchResult:
-    """Pallas-engine read-mapping alignment: one shared 2-bit-packed genome
-    in HBM (uint32 words, pack_2bit layout), per-lane global char offsets —
-    the reference's shared-reference views (genasm_gpu.cu:692-743) without
-    per-pair copies. starts: (B,) uint32 global char offsets;
-    pattern_words: (B, ceil(P/16)) uint32 pack_2bit words.
-
-    The per-pair genome segments are extracted word-major ONCE (the only
-    gather on this path); every slab is then a contiguous slice of the
-    segment buffer, exactly as in the unstructured path."""
-    B = pattern_words.shape[0]
-    Gw = genome_words.shape[0]
-    NWD2 = slab_io_words(cfg, kw)
-    # maximum text chars a pair can touch: every window advances at most
-    # tb_limit and reads W beyond its start, plus the word phase
-    maxchars = max_windows * cfg.tb_limit + cfg.W + 15
-    # + NWD2: slices near the segment end must not hit the in-bounds clamp
-    seg_w = -(-maxchars // CHARS_PER_WORD) + 1 + NWD2
-    starts_u = starts.astype(jnp.uint32)
-    sw = (starts_u >> 4).astype(jnp.int32)
-    # Contiguous per-lane slices, NOT an elementwise take: an (seg_w, B)
-    # index gather runs at ~8.6ns/element on this workload (~0.29s at the
-    # headline shape, 73% of core time — tools/probe_scan.py 2026-08-19);
-    # vmapped dynamic_slice lowers to a gather of whole contiguous rows
-    # (2.9KB each) and measures 3.1x faster. Out-of-range words past the
-    # genome end replicate the last word exactly like the old
-    # min(idx, Gw-1) clamp: the pad region below is genome_words[-1] and
-    # sw <= Gw-1 keeps dynamic_slice from ever clamping the start, so the
-    # resulting buffer is bit-identical.
-    gpad = jnp.broadcast_to(genome_words[-1:], (seg_w,))
-    gwords_p = jnp.concatenate([genome_words, gpad])
-    seg_t = jax.vmap(
-        lambda s: lax.dynamic_slice_in_dim(gwords_p, s, seg_w))(sw).T
-    tphase = (starts_u & 15).astype(jnp.int32)
-
-    pattern_t = jnp.pad(pattern_words, ((0, 0), (0, NWD2))).T
-
-    return _align_scan(cfg, sk, kw, max_windows, seg_t, tphase,
-                       text_len, pattern_t, pattern_len)
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def align_batch_mapped(cfg: AlignConfig, max_windows: int, genome_words,
+                       starts, text_len, pattern_words,
+                       pattern_len) -> BatchResult:
+    """Kernel-engine read-mapping alignment: one shared 2-bit-packed
+    genome in device memory (uint32 words, pack_2bit layout) that every
+    lane reads at its own global char offset — the reference's
+    shared-reference views (genasm_gpu.cu:692-743) without per-pair
+    copies. starts: (B,) uint32 global char offsets; pattern_words:
+    (B, ceil(P/16)) uint32 pack_2bit words."""
+    B, Pw = pattern_words.shape
+    return _align(cfg, max_windows, genome_words, starts, text_len,
+                  pattern_words.reshape(B * Pw), _row_starts(B, Pw),
+                  pattern_len)
 
 
 def _pack_rows_dense(entries):
     """Stable-compact each window's valid (nonzero) sparse rows into a
-    dense prefix along the row axis.
+    dense prefix along the row axis (the two-level compaction's first
+    level, ops/tokens.py).
 
-    NOT on the production path (compact_entries_sparse flattens straight
-    into engine_xla._compact_flat_logshift); retained, with its oracle
-    test, as the documented proof-of-argument for the log-shift routing
-    both compactors share (engine_xla._compact_flat_logshift cites it).
-
-    entries: (MAXW, NE3, B) uint16, empty slots 0. A valid row at position
-    r with j-1 valid rows above it must shift down by d = r+1 - vcum[r],
-    and d is non-decreasing in r — so a log-depth sequence of
-    conditional power-of-two down-shifts (move iff bit k of the remaining
-    distance is set, LSB first) routes every row to its target without
-    collisions (validated against a scalar oracle over random patterns in
-    tests/test_engine_pallas.py). ~2 log2(NE3) elementwise passes over the
-    run store; replaces a per-output-element binary search whose sub-word
-    gathers were ~100x slower than this on TPU."""
+    entries: (MAXW, NE3, B), empty slots 0. A valid row at position r
+    with j-1 valid rows above it must shift down by d = r+1 - vcum[r], and
+    d is non-decreasing in r — so a log-depth sequence of conditional
+    power-of-two down-shifts (move iff bit k of the remaining distance is
+    set, LSB first) routes every row to its target without collisions
+    (validated against a scalar oracle in tests/test_engine_pallas.py).
+    ~2 log2(NE3) elementwise passes over the run store, no gathers."""
     maxw, ne3, b = entries.shape
     valid = entries != 0
     vcum = cumsum_log(valid.astype(jnp.uint8), axis=1)
@@ -1164,10 +747,8 @@ def unpack_entry_pairs(packed):
     """Pair-packed engine rows (MAXW, NE3/2, B) int32 -> sparse u16 rows
     (MAXW, NE3, B): row 2j from the low halfword, 2j+1 from the high.
     Values are < 2^30, so the arithmetic >> is safe. Call this INSIDE a
-    consumer's jit — XLA fuses it into the consumer's first elementwise
-    pass, which is the point of deferring it out of the engine (a
-    materialized unpack cost a 1.9 GB store + re-read per headline
-    batch)."""
+    consumer's jit, so that XLA fuses it into the consumer's first
+    elementwise pass instead of materializing the unpacked store."""
     maxw, ne3h, b = packed.shape
     lo = (packed & 0xFFFF).astype(jnp.uint16)
     hi = (packed >> 16).astype(jnp.uint16)
@@ -1176,21 +757,16 @@ def unpack_entry_pairs(packed):
 
 @functools.partial(jax.jit, static_argnums=(2,))
 def compact_entries_sparse(entries, counts, cap: int):
-    """engine_xla.compact_entries for the Pallas engine's SPARSE rows.
+    """engine_xla.compact_entries for the kernel's SPARSE rows.
 
     entries: the engine's pair-packed (MAXW, NE3/2, B) int32 rows (see
     unpack_entry_pairs) holding per-window traceback rows where empty
     slots are 0 and each lane's non-empty slots hold its maximal CIGAR
     runs in order; counts: (MAXW, B) int32 runs per window (== the
     nonzero slots per window). Output slot g of lane b holds the g-th run
-    of that pair; slots >= total are 0.
-
-    One log-shift compaction over the flattened (MAXW*NE3) row axis
-    (engine_xla._compact_flat_logshift) — purely elementwise; validity is
-    slot != 0. The two earlier designs both gathered: a per-element row
-    binary search (~11 s/batch at the headline benchmark shape) and a
-    window binary search + word-packed run gather (~5 s/batch); the
-    gather-free shifts run the same batch in ~0.2 s."""
+    of that pair; slots >= total are 0. One gather-free log-shift
+    compaction over the flattened (MAXW*NE3) row axis
+    (engine_xla._compact_flat_logshift); validity is slot != 0."""
     maxw, ne3h, b = entries.shape
     from .engine_xla import _compact_flat_logshift
 

@@ -1,10 +1,10 @@
 """Multi-host scaling (jax.distributed) for read-mapping workloads.
 
 The reference is strictly single-node (one GPU, genasm_gpu.cu:67; OpenMP on
-one CPU). The TPU-native scaling design (SURVEY §5 / BASELINE north star):
+one CPU). The scaling design here (SURVEY §5 / BASELINE north star):
 
  - every HOST holds the full reference genome (2-bit packed, a human
-   genome is ~0.75 GiB — comfortably replicated in each chip's HBM),
+   genome is ~0.75 GiB — comfortably replicated in each device's memory),
  - reads + candidate locations are sharded across processes by pair index
    (embarrassingly parallel: zero inter-host communication in the steady
    state; the only collective is the optional result gather),
@@ -36,7 +36,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed; safe no-op for plain single-process
     runs. Called with no arguments it defers to jax's cluster
-    auto-detection (SLURM / Open MPI / TPU pod / GKE environments), and
+    auto-detection (SLURM / Open MPI / GKE environments), and
     only skips initialization when no cluster environment is detected —
     an argless call on a cluster node must NOT silently run
     single-process (every host would align the full dataset)."""

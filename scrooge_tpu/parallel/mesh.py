@@ -1,23 +1,24 @@
 """Multi-chip scaling: data parallelism over alignment pairs on a mesh.
 
 The reference has no distributed backend at all — one process, one GPU
-(genasm_gpu.cu:67), OpenMP threads on CPU (genasm_cpu.cpp:440-460). The
-TPU-native scaling story replaces both concurrency axes with SPMD over a
-``jax.sharding.Mesh``:
+(genasm_gpu.cu:67), OpenMP threads on CPU (genasm_cpu.cpp:440-460). Here
+both concurrency axes become SPMD over a 1-D ``jax.sharding.Mesh``:
 
  - axis ``pairs``: alignment pairs are embarrassingly parallel, so the
-   batch dimension is sharded across every chip (the analogue of OpenMP's
-   dynamic pair scheduling and the GPU's persistent-block work queue —
-   load balance comes from length-sorted batching instead of work
-   stealing, cf. tests.cu:375-377).
- - the reference genome is *replicated* to every chip (a packed human
-   genome is ~0.75 GiB of uint8 codes — comfortably within HBM), so window
-   gathers are chip-local and the steady state needs **zero collectives**;
-   the only cross-chip traffic is the batched early-termination reduction
-   (one bool all-reduce per DP row) and result gathering.
+   batch dimension is sharded across every device (the analogue of
+   OpenMP's dynamic pair scheduling and the GPU's persistent-block work
+   queue — load balance comes from length-sorted batching instead of
+   work stealing, cf. tests.cu:375-377).
+ - the reference genome is *replicated* to every device (a packed human
+   genome is ~0.75 GiB — comfortably within device memory), so window
+   reads are device-local and the kernel path needs **zero
+   collectives**; the XLA engine's only cross-device traffic is its
+   batched early-termination reduction and result gathering.
 
-Works identically on real TPU meshes and on the virtual CPU mesh used in
-tests (XLA_FLAGS=--xla_force_host_platform_device_count=N).
+The mesh is 1-D because every card of a host reaches every other at the
+same rate; nothing here assumes a topology. Works identically on GPU
+meshes and on the virtual CPU mesh used in tests
+(XLA_FLAGS=--xla_force_host_platform_device_count=N).
 """
 
 from __future__ import annotations
@@ -32,18 +33,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..config import AlignConfig
 from ..ops import engine_xla
 
-try:  # jax >= 0.6 exposes shard_map at the top level
-    _shard_map = jax.shard_map
-    _CHECK_KW = "check_vma"
-except AttributeError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-    _CHECK_KW = "check_rep"  # the pre-0.6 name of the same knob
-
-
-def shard_map(fn, *, mesh, in_specs, out_specs, check_vma=True):
-    return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, **{_CHECK_KW: check_vma})
+shard_map = jax.shard_map
 
 PAIR_AXIS = "pairs"
 
@@ -123,20 +113,17 @@ def align_batch_mapped_on_mesh(cfg: AlignConfig, max_windows: int, mesh: Mesh,
 
 
 # ---------------------------------------------------------------------------
-# Pallas engine on the mesh (the performance path).
+# The window kernel on the mesh (the performance path).
 #
-# The fused window kernel is a custom call XLA cannot auto-partition, so the
-# mesh integration is shard_map over the pairs axis: each device runs the
-# full slab scan + kernel on its local lane tiles. Every cross-lane
-# operation inside the engine (the slab-base min/max, the batched
-# early-termination all, the compaction cap arithmetic) becomes SHARD-LOCAL
-# under shard_map — which is exactly the semantics we want: per-device slab
-# bases track only local lanes, per-device slab loops exit early
-# independently, and the steady state needs ZERO collectives
-# (test_parallel.py asserts the compiled HLO has none). This is the
-# dispatch role of the reference GPU's persistent-block work queue
-# (genasm_gpu.cu:583-629): static sharding + length-sorted batching
-# replaces device-side work stealing.
+# The kernel is a custom call XLA cannot auto-partition, so the mesh
+# integration is shard_map over the pairs axis: each device runs the
+# kernel on its local pairs. The kernel's only cross-lane operations
+# (per-warp early termination) stay inside a block, and the compaction's
+# cap arithmetic becomes SHARD-LOCAL under shard_map, so the steady state
+# needs ZERO collectives (test_parallel.py asserts the compiled HLO has
+# none). This is the dispatch role of the reference GPU's persistent-block
+# work queue (genasm_gpu.cu:583-629): static sharding + length-sorted
+# batching replaces device-side work stealing.
 # ---------------------------------------------------------------------------
 
 _RESULT_SPECS = engine_xla.BatchResult(
@@ -148,8 +135,8 @@ _RESULT_SPECS = engine_xla.BatchResult(
 
 
 @functools.lru_cache(maxsize=64)
-def _pallas_sharded_fn(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
-                       mesh: Mesh, mapped: bool):
+def _pallas_sharded_fn(cfg: AlignConfig, max_windows: int, mesh: Mesh,
+                       mapped: bool):
     from ..ops import engine_pallas
 
     if mapped:
@@ -158,7 +145,7 @@ def _pallas_sharded_fn(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
 
         def fn(genome, starts, text_len, pattern, pattern_len):
             return engine_pallas.align_batch_mapped(
-                cfg, max_windows, sk, kw, genome, starts, text_len,
+                cfg, max_windows, genome, starts, text_len,
                 pattern, pattern_len)
     else:
         in_specs = (P(PAIR_AXIS, None), P(PAIR_AXIS),
@@ -166,8 +153,7 @@ def _pallas_sharded_fn(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
 
         def fn(text, text_len, pattern, pattern_len):
             return engine_pallas.align_batch(
-                cfg, max_windows, sk, kw, text, text_len,
-                pattern, pattern_len)
+                cfg, max_windows, text, text_len, pattern, pattern_len)
 
     # check_vma=False: pallas_call outputs carry no varying-mesh-axes
     # metadata, and the engine is purely per-lane anyway
@@ -175,11 +161,9 @@ def _pallas_sharded_fn(cfg: AlignConfig, max_windows: int, sk: int, kw: int,
                              out_specs=_RESULT_SPECS, check_vma=False))
 
 
-def pallas_align_on_mesh(cfg: AlignConfig, max_windows: int, sk: int,
-                         kw: int, mesh: Mesh, text_words, text_len,
-                         pattern_words, pattern_len):
-    """Sharded Pallas-engine unstructured alignment. sk must tile the
-    PER-DEVICE sublane count (use choose_kernel_shape on S // n_devices)."""
+def pallas_align_on_mesh(cfg: AlignConfig, max_windows: int, mesh: Mesh,
+                         text_words, text_len, pattern_words, pattern_len):
+    """Sharded kernel-engine unstructured alignment."""
     _check_batch(pattern_words.shape[0], mesh)
     sh2 = pair_sharding(mesh, 0, 2)
     sh1 = pair_sharding(mesh, 0, 1)
@@ -187,15 +171,15 @@ def pallas_align_on_mesh(cfg: AlignConfig, max_windows: int, sk: int,
             jax.device_put(text_len, sh1),
             jax.device_put(pattern_words, sh2),
             jax.device_put(pattern_len, sh1))
-    return _pallas_sharded_fn(cfg, max_windows, sk, kw, mesh, False)(*args)
+    return _pallas_sharded_fn(cfg, max_windows, mesh, False)(*args)
 
 
-def pallas_align_mapped_on_mesh(cfg: AlignConfig, max_windows: int, sk: int,
-                                kw: int, mesh: Mesh, genome_words, starts,
+def pallas_align_mapped_on_mesh(cfg: AlignConfig, max_windows: int,
+                                mesh: Mesh, genome_words, starts,
                                 text_len, pattern_words, pattern_len):
-    """Sharded Pallas-engine read-mapping: packed genome replicated in
-    every device's HBM (SURVEY §5: a packed human genome is ~0.75 GiB),
-    pairs sharded, per-pair segment gathers device-local."""
+    """Sharded kernel-engine read-mapping: packed genome replicated in
+    every device's memory (SURVEY §5: a packed human genome is
+    ~0.75 GiB), pairs sharded, per-pair window reads device-local."""
     _check_batch(pattern_words.shape[0], mesh)
     sh2 = pair_sharding(mesh, 0, 2)
     sh1 = pair_sharding(mesh, 0, 1)
@@ -204,7 +188,7 @@ def pallas_align_mapped_on_mesh(cfg: AlignConfig, max_windows: int, sk: int,
             jax.device_put(text_len, sh1),
             jax.device_put(pattern_words, sh2),
             jax.device_put(pattern_len, sh1))
-    return _pallas_sharded_fn(cfg, max_windows, sk, kw, mesh, True)(*args)
+    return _pallas_sharded_fn(cfg, max_windows, mesh, True)(*args)
 
 
 @functools.lru_cache(maxsize=64)
@@ -231,3 +215,41 @@ def compact_on_mesh(mesh: Mesh, entries, counts, cap: int, u8: bool,
     """Device-local CIGAR-run compaction of sharded engine output (the
     flat-index binary searches must not become cross-device gathers)."""
     return _compact_sharded_fn(mesh, cap, u8, sparse)(entries, counts)
+
+
+@functools.lru_cache(maxsize=64)
+def _tokenize_sharded_fn(mesh: Mesh, cap: int, sparse: bool, ne3c: int):
+    from ..ops import tokens
+
+    def fn(entries, counts):
+        return tokens.compact_tokenize(entries, counts, cap, sparse, ne3c)
+
+    return jax.jit(shard_map(
+        fn, mesh=mesh,
+        in_specs=(P(None, None, PAIR_AXIS), P(None, PAIR_AXIS)),
+        out_specs=(P(None, PAIR_AXIS), P(PAIR_AXIS), P(PAIR_AXIS)),
+        check_vma=False))
+
+
+def compact_tokenize_on_mesh(mesh: Mesh, entries, counts, cap: int,
+                             sparse: bool, ne3c: int):
+    """Device-local tokens.compact_tokenize of sharded engine output: the
+    token readback path of a mesh tile."""
+    return _tokenize_sharded_fn(mesh, cap, sparse, ne3c)(entries, counts)
+
+
+@functools.lru_cache(maxsize=64)
+def _tokens_sharded_fn(mesh: Mesh, capT: int):
+    from ..ops import tokens
+
+    def fn(toks):
+        return tokens.compact_tokens(toks, capT)
+
+    return jax.jit(shard_map(fn, mesh=mesh, in_specs=(P(None, PAIR_AXIS),),
+                             out_specs=P(PAIR_AXIS, None), check_vma=False))
+
+
+def compact_tokens_on_mesh(mesh: Mesh, toks, capT: int):
+    """Device-local tokens.compact_tokens: lane-major (B, capT) tokens,
+    pair-sharded."""
+    return _tokens_sharded_fn(mesh, capT)(toks)

@@ -39,7 +39,8 @@ def random_multichrom_genome(length: int, n_chroms: int = 24,
     1/(i+2), chr1 largest), concatenated into one content string with a
     chromosome_starts map — the Genome_t shape the reference's FASTA
     parser produces for real references (util.cpp:45-108). This is the
-    BASELINE 'multi-chromosome reference in HBM' workload generator."""
+    BASELINE 'multi-chromosome reference in device memory' workload
+    generator."""
     rng = np.random.default_rng(seed)
     weights = 1.0 / (np.arange(n_chroms) + 2.0)
     sizes = np.maximum((weights / weights.sum() * length).astype(np.int64),

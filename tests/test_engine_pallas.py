@@ -1,9 +1,12 @@
-"""Pallas engine parity tests.
+"""Pallas window-kernel tests.
 
-The fused VMEM kernel must be bit-identical to the XLA engine (and hence
-the scalar oracle / reference semantics). On TPU this exercises the real
-Mosaic kernel; elsewhere it runs in Pallas interpreter mode — same code,
-same outputs, slower, so the cases here stay small.
+The kernel must be bit-identical to the XLA engine (and hence the scalar
+oracle / reference semantics). Here it runs in Pallas interpret mode,
+asked for explicitly with AlignConfig(interpret=True) — same kernel code,
+same outputs, slower, so the cases stay small. Compilation for the GPU is
+checked by lowering the kernel through the Triton route for the CUDA
+platform; running it compiled is chip_smoke.py's job (and the
+gpu-marked test below).
 """
 
 import os
@@ -19,7 +22,7 @@ from scrooge_tpu import pyref
 from scrooge_tpu.config import AlignConfig as _AC
 from scrooge_tpu.ops import engine_pallas, engine_xla
 
-PL_CFG = AlignConfig(backend="pallas", batch_tile=128)
+PL_CFG = AlignConfig(backend="pallas", batch_tile=128, interpret=True)
 
 
 def _random_cases(seed, count, max_len=180):
@@ -44,7 +47,7 @@ def _random_cases(seed, count, max_len=180):
 
 def test_pallas_engine_matches_xla_engine_raw():
     """Raw engine-to-engine equality on every output array."""
-    cfg = _AC(W=32, K=32, O=17)
+    cfg = _AC(W=32, K=32, O=17, interpret=True)
     B = 128
     rng = np.random.default_rng(5)
     T, P = 64, 48
@@ -58,19 +61,17 @@ def test_pallas_engine_matches_xla_engine_raw():
     maxw = cfg.max_windows(P)
 
     rp = engine_pallas.align_batch(
-        cfg, maxw, 1, 2,
+        cfg, maxw,
         engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
     rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     np.testing.assert_array_equal(np.asarray(rp.edit_distance),
                                   np.asarray(rx.edit_distance))
-    np.testing.assert_array_equal(np.asarray(rp.failed), np.asarray(rx.failed))
-    # the pallas engine may run extra trailing windows (slab granularity);
-    # they must be empty
-    mw = rx.counts.shape[0]
-    np.testing.assert_array_equal(np.asarray(rp.counts)[:mw],
+    np.testing.assert_array_equal(np.asarray(rp.failed) != 0,
+                                  np.asarray(rx.failed))
+    assert rp.counts.shape == rx.counts.shape  # exactly max_windows
+    np.testing.assert_array_equal(np.asarray(rp.counts),
                                   np.asarray(rx.counts))
-    assert int(np.asarray(rp.counts)[mw:].sum()) == 0
     # entry layouts differ (pallas: sparse maximal-run rows; xla: dense
     # slots) — compare the per-pair run lists after device compaction,
     # which also pins compact_entries_sparse against the dense compactor
@@ -97,7 +98,8 @@ def test_pallas_api_matches_oracle():
 @pytest.mark.parametrize("wko", [(16, 16, 9), (64, 64, 33), (128, 128, 65)])
 def test_pallas_other_configs(wko):
     W, K, O = wko
-    cfg = AlignConfig(W=W, K=K, O=O, backend="pallas", batch_tile=128)
+    cfg = AlignConfig(W=W, K=K, O=O, backend="pallas", batch_tile=128,
+                      interpret=True)
     cases = _random_cases(29, 12, max_len=120)
     texts = [t for t, _ in cases]
     queries = [q for _, q in cases]
@@ -110,12 +112,11 @@ def test_pallas_other_configs(wko):
 
 
 def test_pallas_long_reads_no_spurious_failures():
-    """Multi-slab reads must not fail lanes on the device path. A failed
-    lane silently falls back to the bit-exact scalar retry, so parity
-    tests cannot catch a fail storm — only the raw engine flags can.
-    (Regression: the slab-slice base clamp near the sequence end once
-    blew the drift margin and failed every lane of every long read.)"""
-    cfg = _AC(W=64, K=64, O=33)
+    """Multi-window reads must not fail lanes on the device path. A
+    failed lane silently falls back to the bit-exact scalar retry, so
+    parity tests cannot catch a fail storm — only the raw engine flags
+    can."""
+    cfg = _AC(W=64, K=64, O=33, interpret=True)
     B, rl, tl = 256, 600, 680
     rng = np.random.default_rng(9)
     text = rng.integers(0, 4, (B, tl), dtype=np.uint8)
@@ -127,7 +128,7 @@ def test_pallas_long_reads_no_spurious_failures():
     plen = np.full(B, rl, np.int32)
     maxw = cfg.max_windows(rl)
     rp = engine_pallas.align_batch(
-        cfg, maxw, 2, 8,
+        cfg, maxw,
         engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
     rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
@@ -138,7 +139,7 @@ def test_pallas_long_reads_no_spurious_failures():
 
 def test_garbage_candidates_batched_retry():
     """Wrong seed locations (real read-mapping inputs contain them en
-    masse) push per-window edit distances past the Pallas tb_cap; those
+    masse) push per-window edit distances past the kernel's tb_cap; those
     lanes must route through the BATCHED full-K XLA retry — not the
     ~1000x-slower scalar path — and still return bit-exact results."""
     import scrooge_tpu.api as api
@@ -156,10 +157,11 @@ def test_garbage_candidates_batched_retry():
         reads.append(Read(description=f"r{i}", content=read,
                           locations=[CandidateLocation(
                               start_in_reference=loc)]))
-    cfg = AlignConfig(backend="pallas", batch_tile=128)
+    cfg = AlignConfig(backend="pallas", batch_tile=128, interpret=True)
     got, stats = api.align_reads(Genome(content=genome), reads, cfg,
                                  return_stats=True)
     assert stats.retried_pairs > 0  # the garbage half did fail the kernel
+    assert stats.engine_tiles["pallas"] == 1
     ref_cfg = AlignConfig()
     for read, a in zip(reads, got):
         start = read.locations[0].start_in_reference
@@ -169,9 +171,11 @@ def test_garbage_candidates_batched_retry():
 
 
 def test_single_laggard_does_not_fail_batch():
-    """One insertion-dominated lane (its text cursor crawls) must fail
-    alone: the slab base follows the pack, not the laggard."""
-    cfg = _AC(W=64, K=64, O=33)
+    """Pairs at distant cursors stay exact: one insertion-dominated lane
+    (an unrelated read whose text cursor crawls) shares its warp with a
+    97%-match pack. Every lane reads its own text at its own cursor, so
+    no lane of the pack may fail, and all of them must equal engine_xla."""
+    cfg = _AC(W=64, K=64, O=33, interpret=True)
     B, rl = 128, 600
     rng = np.random.default_rng(13)
     text = rng.integers(0, 4, (B, rl + 80), dtype=np.uint8)
@@ -186,61 +190,147 @@ def test_single_laggard_does_not_fail_batch():
     plen = np.full(B, rl, np.int32)
     maxw = cfg.max_windows(rl)
     rp = engine_pallas.align_batch(
-        cfg, maxw, 1, 8,
+        cfg, maxw,
         engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
+    rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     failed = np.asarray(rp.failed)
-    # the healthy pack must survive regardless of what lane 0 does
     assert int(failed[1:].sum()) == 0
+    np.testing.assert_array_equal(np.asarray(rp.edit_distance)[1:],
+                                  np.asarray(rx.edit_distance)[1:])
 
 
-def test_pallas_vmem_fallback_resolution():
-    from scrooge_tpu.api import _resolve_backend
+@pytest.mark.parametrize("W", [16, 32, 40, 64, 128, 192, 256, 512])
+def test_kernel_shape_choice(W):
+    """The shape chooser gives every W up to the kernel's widest one
+    warp-sized blocks and the four-row fill band, and no kernel
+    (engine_xla) past W=256; the R buffer holds every traced row."""
+    cfg = _AC(W=W, K=W, O=W // 2 + 1)
+    bl, band = engine_pallas.choose_kernel_shape(cfg)
+    if W > 256:
+        assert (bl, band) == (0, 0)
+        return
+    assert bl == engine_pallas.PAIRS_PER_BLOCK and bl % 32 == 0
+    assert band == engine_pallas.FILL_BAND == 4
+    assert engine_pallas.r_rows(cfg, band) >= cfg.tb_cap + 1
+    # the d-search advances whole bands: its last band may overhang
+    # tb_cap, and every row it writes has a slot
+    last_band_start = (cfg.tb_cap // band) * band
+    assert last_band_start + band <= engine_pallas.r_rows(cfg, band)
 
-    big = _AC(W=512, K=512, O=257)
-    assert not engine_pallas.fits_vmem(big)
-    engine, _, _, _ = _resolve_backend(big, 1024)
-    assert engine == "xla"
-    # the tb_cap'd R scratch + 92MB validated budget keep W<=256 on the
-    # Pallas engine (the profile.py:65-82 W-sweep range, all fast-path)
-    for wko in [(128, 128, 65), (192, 192, 97), (256, 256, 129)]:
-        cfg = _AC(W=wko[0], K=wko[1], O=wko[2])
-        sk, kw = engine_pallas.choose_kernel_shape(cfg, 256)
-        assert sk > 0, wko
-    # W=512 breaks BOTH Pallas limits; the slab (Mosaic compile) bound is
-    # reported first — it binds regardless of batch size or VMEM budget
-    with pytest.raises(ValueError, match="Pallas slab bound"):
-        _resolve_backend(_AC(W=512, K=512, O=257, backend="pallas"), 1024)
+
+def test_kernel_pads_batch_to_whole_blocks():
+    """A batch that is not a whole number of 32-pair blocks is padded
+    with empty lanes inside the engine and sliced back: the real lanes'
+    results equal engine_xla's, and the outputs keep the caller's batch
+    size."""
+    cfg = _AC(W=32, K=32, O=17, interpret=True)
+    B, n = 128, 40
+    rng = np.random.default_rng(8)
+    text = rng.integers(0, 4, (B, 96), dtype=np.uint8)
+    pattern = np.where(rng.random((B, 80)) < 0.06,
+                       rng.integers(0, 4, (B, 80), dtype=np.uint8),
+                       text[:, :80]).astype(np.uint8)
+    tlen = np.full(B, 96, np.int32)
+    plen = np.full(B, 80, np.int32)
+    tlen[n:] = 0
+    plen[n:] = 0
+    maxw = cfg.max_windows(80)
+    rp = engine_pallas.align_batch(
+        cfg, maxw, engine_pallas.pack_2bit_host(text[:n]), tlen[:n],
+        engine_pallas.pack_2bit_host(pattern[:n]), plen[:n])
+    rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
+    assert rp.edit_distance.shape == (n,)
+    assert rp.entries.shape[-1] == n and rp.counts.shape == (maxw, n)
+    np.testing.assert_array_equal(np.asarray(rp.edit_distance),
+                                  np.asarray(rx.edit_distance)[:n])
+    np.testing.assert_array_equal(np.asarray(rp.counts),
+                                  np.asarray(rx.counts)[:, :n])
 
 
-def test_vmem_fit_tb_cap_shrink(monkeypatch):
-    """W=240 (the one reference-grid W whose traceback range straddles 5
-    words, profile.py:65-82) misses the VMEM budget at its native
-    tb_cap=32; "auto" on TPU must shrink the cap until the kernel fits
-    instead of paying the XLA-engine fallback, and must leave explicit
-    overrides alone (exactness is cap-independent: over-cap lanes take
-    the escalation ladder / full-K retry)."""
+def test_resolve_backend_by_platform(monkeypatch):
+    """"auto" runs the kernel on a GPU and engine_xla on the CPU; a W
+    whose state the kernel does not take runs on engine_xla even on a
+    GPU; "xla" is never overridden."""
     import jax
 
     from scrooge_tpu.api import _resolve_backend
 
-    cfg = _AC(W=240, K=240, O=121)
-    assert engine_pallas.choose_kernel_shape(cfg, 16) == (0, 0)
+    assert _resolve_backend(_AC()) == "xla"  # this process: the CPU
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert _resolve_backend(_AC()) == "pallas"
+    assert _resolve_backend(_AC(W=512, K=512, O=257)) == "xla"
+    assert _resolve_backend(_AC(backend="xla")) == "xla"
+    assert _resolve_backend(_AC(backend="pallas")) == "pallas"
+    with pytest.raises(ValueError, match="register state"):
+        _resolve_backend(_AC(W=512, K=512, O=257, backend="pallas"))
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    engine, sk, kw, fitted = _resolve_backend(cfg, 2048)
-    assert engine == "pallas" and sk > 0 and kw > 0
-    assert 8 <= fitted.tb_cap < cfg.tb_cap
-    assert engine_pallas.kernel_vmem_bytes(fitted, sk, kw) \
-        <= engine_pallas.VMEM_BUDGET
-    # a user-set cap is never second-guessed: if it does not fit, the
-    # config falls back to the XLA engine as before
-    pinned = _AC(W=240, K=240, O=121, tb_cap_override=32)
-    engine, _, _, out = _resolve_backend(pinned, 2048)
-    assert engine == "xla" and out.tb_cap == 32
-    # configs past the slab (Mosaic compile) bound must not shrink-loop
-    engine, _, _, _ = _resolve_backend(_AC(W=512, K=512, O=257), 1024)
-    assert engine == "xla"
+
+def test_pallas_backend_raises_without_gpu():
+    """backend="pallas" never falls back silently: without a GPU it
+    raises unless interpret mode is asked for, at the API and at the
+    engine."""
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        scrooge_tpu.align_all(["ACGTACGT"], ["ACGTACGT"],
+                              config=AlignConfig(backend="pallas"))
+    words = engine_pallas.pack_2bit_host(np.zeros((128, 16), np.uint8))
+    lens = np.full(128, 16, np.int32)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        engine_pallas.align_batch(_AC(), 4, words, lens, words, lens)
+    got = scrooge_tpu.align_all(
+        ["ACGTACGT"], ["ACGTACGT"],
+        config=AlignConfig(backend="pallas", interpret=True))
+    assert (got[0].edit_distance, got[0].cigar) == (0, "8=")
+
+
+@pytest.mark.parametrize("wo", [(16, 9), (40, 21), (64, 33), (256, 129)])
+def test_kernel_lowers_through_triton_for_cuda(wo, monkeypatch):
+    """Every primitive of the kernel has a Triton lowering: the kernel is
+    lowered for the CUDA platform here, on the CPU, so an unsupported
+    operation fails in the tests rather than first on the card. (The
+    GPU's own compiler runs only there; chip_smoke.py compiles and checks
+    these widths.)"""
+    import jax
+
+    W, O = wo
+    cfg = _AC(W=W, K=W, O=O)
+    monkeypatch.setattr(engine_pallas, "check_device", lambda cfg: None)
+    B, P = 256, 640
+    args = (jax.ShapeDtypeStruct((4096,), jnp.uint32),
+            jax.ShapeDtypeStruct((B,), jnp.uint32),
+            jax.ShapeDtypeStruct((B,), jnp.int32),
+            jax.ShapeDtypeStruct((B, P // 16), jnp.uint32),
+            jax.ShapeDtypeStruct((B,), jnp.int32))
+    lowered = jax.jit(
+        lambda *a: engine_pallas.align_batch_mapped(cfg, 32, *a)
+    ).trace(*args).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "__gpu$xla.gpu.triton" in text
+    assert "genasm_windows" in text
+
+
+@pytest.mark.gpu
+def test_kernel_matches_xla_on_gpu(gpu):
+    """On the card: the compiled kernel equals engine_xla on 512 random
+    pairs at the headline config (chip_smoke.py runs the full set)."""
+    cfg = _AC(W=64, K=64, O=33)
+    B, rl = 512, 900
+    rng = np.random.default_rng(4)
+    text = rng.integers(0, 4, (B, rl + 100), dtype=np.uint8)
+    pattern = np.where(rng.random((B, rl)) < 0.05,
+                       rng.integers(0, 4, (B, rl), dtype=np.uint8),
+                       text[:, :rl]).astype(np.uint8)
+    tlen = np.full(B, rl + 100, np.int32)
+    plen = np.full(B, rl, np.int32)
+    maxw = cfg.max_windows(rl)
+    rp = engine_pallas.align_batch(
+        cfg, maxw, engine_pallas.pack_2bit_host(text), tlen,
+        engine_pallas.pack_2bit_host(pattern), plen)
+    rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
+    ok = (np.asarray(rp.failed) == 0) & ~np.asarray(rx.failed)
+    assert ok.sum() > B // 2
+    np.testing.assert_array_equal(np.asarray(rp.edit_distance)[ok],
+                                  np.asarray(rx.edit_distance)[ok])
 
 
 def test_pack_rows_dense_matches_oracle():
@@ -268,7 +358,7 @@ def test_pack_rows_dense_matches_oracle():
 
 
 def test_failure_reason_telemetry():
-    """The Pallas engine's failed lanes carry a reason BITMASK
+    """The kernel's failed lanes carry a reason BITMASK
     (engine_pallas.FAIL_*) and AlignStats aggregates it — the telemetry
     analogue of the reference's DEBUG traceback checks
     (genasm_cpu.cpp:362-385). Garbage candidates overflow tb_cap, so the
@@ -287,16 +377,20 @@ def test_failure_reason_telemetry():
         reads.append(Read(description=f"r{i}", content=read,
                           locations=[CandidateLocation(
                               start_in_reference=loc)]))
-    cfg = AlignConfig(backend="pallas", batch_tile=128)
+    cfg = AlignConfig(backend="pallas", batch_tile=128, interpret=True)
+    # caps predicted by an earlier test of this config could fail a lane
+    # for compaction overflow, which carries no kernel reason bit
+    api._cap_cache.clear()
     _, stats = api.align_reads(Genome(content=genome), reads, cfg,
                                return_stats=True)
     assert stats.retried_pairs > 0
     reasons = (stats.fail_tb_pairs + stats.fail_stall_pairs
-               + stats.fail_drift_pairs + stats.fail_incomplete_pairs)
+               + stats.fail_incomplete_pairs)
     # every failed lane sets at least one reason bit
     assert reasons >= stats.retried_pairs
     assert stats.fail_tb_pairs > 0  # garbage candidates exceed tb_cap
     assert "fail[tb=" in stats.breakdown()
+    assert "engines[" in stats.breakdown() and "pallas=1" in stats.breakdown()
 
 
 def test_pyref_debug_dead_end_detection(monkeypatch):
@@ -321,10 +415,9 @@ def test_pyref_debug_dead_end_detection(monkeypatch):
 
 def test_single_leader_does_not_fail_batch():
     """Mirror of the laggard case: one CLEAN lane among an insertion-rich
-    pack races ahead in text position; the slab base must track the pack
-    (active mean), failing the leader alone — not follow the leader's max
-    and mass-fail everyone else."""
-    cfg = _AC(W=64, K=64, O=33)
+    pack races ahead in text position. Pairs at distant cursors stay
+    exact: nobody fails, and every lane equals engine_xla."""
+    cfg = _AC(W=64, K=64, O=33, interpret=True)
     B, span = 128, 600
     rng = np.random.default_rng(17)
     text = rng.integers(0, 4, (B, span + 80), dtype=np.uint8)
@@ -350,12 +443,14 @@ def test_single_leader_does_not_fail_batch():
     tlen = np.full(B, span + 80, np.int32)
     maxw = cfg.max_windows(int(plen.max()))
     rp = engine_pallas.align_batch(
-        cfg, maxw, 1, 8,
+        cfg, maxw,
         engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
+    rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     failed = np.asarray(rp.failed)
-    # the insertion-rich pack must survive regardless of lane 0
-    assert int((failed[1:] != 0).sum()) == 0, int((failed[1:] != 0).sum())
+    assert int((failed != 0).sum()) == 0, int((failed != 0).sum())
+    np.testing.assert_array_equal(np.asarray(rp.edit_distance),
+                                  np.asarray(rx.edit_distance))
 
 
 @pytest.mark.skipif(not os.environ.get("SCROOGE_SLOW_TESTS"),
@@ -364,11 +459,11 @@ def test_single_leader_does_not_fail_batch():
                            "equal=True, failed=0)")
 def test_w256_parity_interpreted():
     """W=256 K=256 O=129 (the top of the reference's W-sweep range,
-    profile.py:65-82) on the Pallas engine in interpreter mode:
+    profile.py:65-82) on the kernel in interpreter mode:
     bit-identical edit distances to the XLA engine, no failed lanes.
-    Mosaic compilation of this config is validated separately on
-    hardware (tools/tpu_queue.sh step 2)."""
-    cfg = _AC(W=256, K=256, O=129, batch_tile=128)
+    GPU compilation of this config is checked by chip_smoke.py's width
+    phase."""
+    cfg = _AC(W=256, K=256, O=129, batch_tile=128, interpret=True)
     B, rl, tl = 128, 220, 320
     rng = np.random.default_rng(7)
     text = rng.integers(0, 4, (B, tl), dtype=np.uint8)
@@ -378,9 +473,8 @@ def test_w256_parity_interpreted():
     tlen = np.full(B, tl, np.int32)
     plen = np.full(B, rl, np.int32)
     maxw = cfg.max_windows(rl)
-    sk, kw = engine_pallas.choose_kernel_shape(cfg, B // 128)
     rp = engine_pallas.align_batch(
-        cfg, maxw, sk, kw, engine_pallas.pack_2bit_host(text), tlen,
+        cfg, maxw, engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
     rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     assert not np.asarray(rp.failed).any()
@@ -391,26 +485,13 @@ def test_w256_parity_interpreted():
 @pytest.mark.skipif(not os.environ.get("SCROOGE_SLOW_TESTS"),
                     reason="interpreted large-W run; run with "
                            "SCROOGE_SLOW_TESTS=1")
-def test_w240_parity_interpreted_shrunk_cap():
-    """W=240 K=240 O=121 on the Pallas engine at the VMEM-fit shrunk cap
-    (_resolve_backend: native tb_cap=32 models 95MB > the 92MB budget):
-    bit-identical edit distances to the XLA engine on lanes the capped
-    d-search resolves; over-cap lanes report FAIL_TB for the escalation
-    ladder, exactly the api contract. Mosaic compilation + full-pipeline
-    parity of this config is validated on hardware
-    (profile/w240_pallas_probe.log)."""
-    import dataclasses
-
-    from scrooge_tpu.api import _resolve_backend
-
-    # resolve at the sweep batch (2048: S=16, where only sk>=8 tiles are
-    # Mosaic-legal and the native cap overflows VMEM), then run the
-    # engine on one 128-lane block at the SAME shrunk cap
-    cfg0 = _AC(W=240, K=240, O=121, batch_tile=2048, backend="pallas")
-    engine, _, _, fitted = _resolve_backend(cfg0, 2048)
-    assert engine == "pallas" and fitted.tb_cap < 32
-    cfg = dataclasses.replace(fitted, batch_tile=128)
-    sk, kw = engine_pallas.choose_kernel_shape(cfg, 1)
+def test_w240_parity_interpreted():
+    """W=240 K=240 O=121 (the one reference-grid W whose traceback bit
+    range [O-1, W) straddles 5 words, profile.py:65-82) on the kernel in
+    interpreter mode: bit-identical edit distances to the XLA engine on
+    lanes the capped d-search resolves; over-cap lanes report FAIL_TB for
+    the escalation ladder, exactly the api contract."""
+    cfg = _AC(W=240, K=240, O=121, batch_tile=128, interpret=True)
     B, rl, tl = 128, 220, 320
     rng = np.random.default_rng(11)
     text = rng.integers(0, 4, (B, tl), dtype=np.uint8)
@@ -421,7 +502,7 @@ def test_w240_parity_interpreted_shrunk_cap():
     plen = np.full(B, rl, np.int32)
     maxw = cfg.max_windows(rl)
     rp = engine_pallas.align_batch(
-        cfg, maxw, sk, kw, engine_pallas.pack_2bit_host(text), tlen,
+        cfg, maxw, engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
     rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     failed = np.asarray(rp.failed)
@@ -433,11 +514,10 @@ def test_w240_parity_interpreted_shrunk_cap():
 
 
 def test_trailing_windows_beyond_max_windows_fail_like_xla():
-    """When kw does not divide max_windows, the slab loop runs extra
-    trailing windows; lanes that needed them must FAIL (engine_xla runs
-    exactly max_windows), and entries/counts must be sliced to
-    max_windows. Regression for a latent contract divergence."""
-    cfg = _AC(W=16, K=16, O=9, batch_tile=128)
+    """The kernel runs exactly max_windows windows, like engine_xla:
+    lanes that would need more FAIL, and entries/counts have exactly
+    max_windows rows."""
+    cfg = _AC(W=16, K=16, O=9, batch_tile=128, interpret=True)
     B, rl, tl = 128, 60, 90
     rng = np.random.default_rng(3)
     text = rng.integers(0, 4, (B, tl), dtype=np.uint8)
@@ -449,8 +529,8 @@ def test_trailing_windows_beyond_max_windows_fail_like_xla():
     plen = np.full(B, rl, np.int32)
     tw = engine_pallas.pack_2bit_host(text)
     pw = engine_pallas.pack_2bit_host(pattern)
-    for maxw, kw in [(9, 2), (13, 8)]:
-        rp = engine_pallas.align_batch(cfg, maxw, 1, kw, tw, tlen, pw, plen)
+    for maxw in (9, 13):
+        rp = engine_pallas.align_batch(cfg, maxw, tw, tlen, pw, plen)
         rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
         assert rp.entries.shape[0] == maxw
         assert rp.counts.shape[0] == maxw
@@ -505,11 +585,11 @@ def test_compact_flat_logshift_matches_oracle():
 
 
 def test_pallas_emitter_counts_match_nonzero_slots():
-    """Pin the invariant the sparse compactors rely on: the Pallas
-    emitter's per-window ``counts`` equal the number of nonzero slots it
+    """Pin the invariant the sparse compactors rely on: the kernel's
+    per-window ``counts`` equal the number of nonzero slots it
     wrote (compact_entries_sparse derives validity from slot != 0 and
     would silently disagree with the dense path if these diverged)."""
-    cfg = _AC(W=64, K=64, O=33, batch_tile=128)
+    cfg = _AC(W=64, K=64, O=33, batch_tile=128, interpret=True)
     rng = np.random.default_rng(5)
     B, rl, tl = 128, 700, 900
     text = rng.integers(0, 4, (B, tl), dtype=np.uint8)
@@ -519,9 +599,8 @@ def test_pallas_emitter_counts_match_nonzero_slots():
     tlen = np.full(B, tl, np.int32)
     plen = np.full(B, rl, np.int32)
     maxw = -(-cfg.max_windows(rl) // 32) * 32
-    sk, kw = engine_pallas.choose_kernel_shape(cfg, B // 128)
     res = engine_pallas.align_batch(
-        cfg, maxw, sk, kw,
+        cfg, maxw,
         engine_pallas.pack_2bit_host(text), tlen,
         engine_pallas.pack_2bit_host(pattern), plen)
     # (maxw, ne3/2, B) pair-packed sparse rows: count nonzero halfwords

@@ -186,25 +186,6 @@ def test_asic_model_matches_reference_linear_numbers():
     assert round(sum(gp) / sum(sp), 3) == 1.974
 
 
-def test_tpu_models_sane():
-    """The calibrated stage model and the speed-of-light port model must
-    be internally consistent: the SoL floor strictly exceeds the
-    calibrated prediction (a floor below the calibrated estimate would
-    mean the 'bound' claims less than we already achieve), and both
-    scale sanely with batch."""
-    from scrooge_tpu.profiling.model import (tpu_aligns_per_second,
-                                             tpu_speed_of_light)
-
-    cal = tpu_aligns_per_second(batch=16_384)
-    sol = tpu_speed_of_light(batch=16_384)
-    assert sol["aligns_per_second_floor"] > cal["aligns_per_second"] > 0
-    assert sol["total_floor_ms"] > 0
-    # floors are per-batch times: double batch ~ double time (sub-linear
-    # only through the fixed dispatch term, absent in the floor)
-    sol2 = tpu_speed_of_light(batch=32_768)
-    assert 1.7 < sol2["total_floor_ms"] / sol["total_floor_ms"] < 2.3
-
-
 def test_asic_latency_model():
     from scrooge_tpu.profiling.model import single_window_latency
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""BASELINE config 4 at scale: multi-chromosome reference resident in HBM,
+"""BASELINE config 4 at scale: multi-chromosome reference resident on the device,
 long reads streamed against it in chunks.
 
 The reference's full-dataset runs stream ~1M PBSIM2 reads against a real
 genome with the genome packed once into managed memory
 (/root/reference/src/genasm_gpu.cu:692-743, README.md:155-160). This
-driver reproduces that shape end-to-end on the TPU: a ~1 Gbase
+driver reproduces that shape end-to-end on the device: a ~1 Gbase
 multi-chromosome simulated genome is packed/uploaded ONCE (PreparedGenome),
 then read chunks stream through align_reads with packed-CIGAR output.
 
